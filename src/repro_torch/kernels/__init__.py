@@ -1,0 +1,2 @@
+"""Hand-written CUDA kernels (``csrc/``): ``ops`` dispatches by device,
+``ref`` holds the plain PyTorch versions, ``_build`` compiles with nvcc."""
