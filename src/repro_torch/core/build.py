@@ -318,7 +318,7 @@ def build_graph(xb: torch.Tensor, attr: AttrTable, cfg: BuildConfig,
     graph = torch.full((N, cfg.row_width), -1, dtype=torch.int32, device=dev)
     degree = torch.zeros((N,), dtype=torch.int32, device=dev)
     insert = make_insert_step(cfg)
-    fetch_fn = make_fetch_fn(build_layout(xb, attr), use_kernel=xb.is_cuda)
+    fetch_fn = make_fetch_fn(build_layout(xb, attr))
 
     rng = np.random.default_rng(seed)
     Bsz = cfg.batch_size

@@ -8,7 +8,8 @@ fallback from the card to the plain version.
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on ``torch.cuda.current_stream()``
 without synchronising, raises when the launch reports a CUDA error, and adds
-one to ``LAUNCHES[name]`` for each kernel it launches.
+one to ``LAUNCHES[name]`` for each kernel it launches. An empty output needs
+no launch: the wrapper returns it without calling the kernel or counting.
 """
 from __future__ import annotations
 
@@ -73,6 +74,8 @@ def fused_expand(packed: torch.Tensor, ids: torch.Tensor, q: torch.Tensor,
     N, row_w = packed.shape
     B, C = ids.shape
     A = row_w - d - 1
+    if N == 0:
+        raise ValueError("packed has no rows to gather")
     if A < 1:
         raise ValueError("packed rows must carry at least one attr word")
     if d * 4 > 48 * 1024:
@@ -83,7 +86,9 @@ def fused_expand(packed: torch.Tensor, ids: torch.Tensor, q: torch.Tensor,
     _expect(q_norm, "q_norm", torch.float32, (B,))
     d2 = torch.empty((B, C), dtype=torch.float32, device=packed.device)
     words = torch.empty((B, C, A), dtype=torch.int32, device=packed.device)
-    _launch("fused_expand", packed, ids, q, q_norm, d2, words, B, C, N, d, A)
+    if d2.numel():
+        _launch("fused_expand", packed, ids, q, q_norm, d2, words,
+                B, C, N, d, A)
     return d2, words.view(torch.float32)
 
 
@@ -99,13 +104,15 @@ def gather_dist_tile(xb: torch.Tensor, base: torch.Tensor, q: torch.Tensor,
         return ref.gather_dist_tile(xb, base, q, tile=tile)
     n_rows, dp = xb.shape
     B = base.shape[0]
-    if n_rows % tile:
-        raise ValueError(f"xb rows {n_rows} are not a multiple of {tile}")
+    if n_rows == 0 or n_rows % tile:
+        raise ValueError(f"xb rows {n_rows} are not a positive multiple of "
+                         f"{tile}")
     _expect(xb, "xb", torch.float32, (n_rows, dp))
     _expect(base, "base", torch.int32, (B,))
     _expect(q, "q", torch.float32, (B, dp))
     out = torch.empty((B, tile), dtype=torch.float32, device=xb.device)
-    _launch("gather_dist_tile", xb, base, q, out, B, tile, dp, n_rows)
+    if out.numel():
+        _launch("gather_dist_tile", xb, base, q, out, B, tile, dp, n_rows)
     return out
 
 
@@ -123,7 +130,9 @@ def bitset_dist(a: torch.Tensor, b: torch.Tensor, *,
     _expect(a, "a", torch.int32, (B, W))
     _expect(b, "b", torch.int32, (N, W))
     out = torch.empty((B, N), dtype=torch.int32, device=a.device)
-    _launch("bitset_dist", a, b, out, B, N, W, 1 if op == "deficit" else 0)
+    if out.numel():
+        _launch("bitset_dist", a, b, out, B, N, W,
+                1 if op == "deficit" else 0)
     return out
 
 

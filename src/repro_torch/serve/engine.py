@@ -3,42 +3,29 @@
 
 ``greedy_search`` takes a ``fetch_fn(ids, q32, q_norm) -> (d2, attrs)``
 hook that replaces the default two-gather expansion. This module builds it
-from a packed layout, so every expansion is one row gather:
-
-  * kernel path (``use_kernel=True``): ``kernels.ops.fused_expand``, the
-    hand-written CUDA kernel for tensors on the card, its plain version on
-    the CPU. The executor turns it on for CUDA tensors: the counterpart of
-    the reference's ``use_kernel=True``.
-  * gather path: one indexed gather of the packed matrix in plain torch.
-
-Both decode attr words with ``FusedLayout.unpack_attrs``, so the attrs dict
-is exactly what ``AttrTable.gather`` would have produced.
+from a packed layout, so every expansion is one row gather through
+``kernels.ops.fused_expand``: the hand-written CUDA kernel for a layout on
+the card (the counterpart of the reference's ``use_kernel=True``), its
+plain version for a layout on the CPU. The attr words are decoded with
+``FusedLayout.unpack_attrs``, so the attrs dict is exactly what
+``AttrTable.gather`` would have produced.
 """
 from __future__ import annotations
 
 import torch
 
-from ..core.distances import gathered_dot
 from ..kernels import ops
 from .layout import FusedLayout
 
 
-def make_fetch_fn(layout: FusedLayout, *, use_kernel: bool = False):
+def make_fetch_fn(layout: FusedLayout):
     """Build a ``fetch_fn`` for ``greedy_search`` from a packed layout."""
-    d = layout.d
 
     def fetch_fn(ids, q32, q_norm):
         q_eff = q32 * layout.q_scale[None, :]
-        if use_kernel:
-            d2, words = ops.fused_expand(
-                layout.packed, ids.to(torch.int32).contiguous(),
-                q_eff.contiguous(), q_norm.contiguous(), d=d)
-        else:
-            rows = layout.packed[ids.clamp(0, layout.n - 1)]
-            dots = gathered_dot(rows[..., :d], q_eff)
-            d2 = torch.clamp_min(rows[..., d] - 2.0 * dots
-                                 + q_norm[:, None], 0.0)
-            words = rows[..., d + 1:]
+        d2, words = ops.fused_expand(
+            layout.packed, ids.to(torch.int32).contiguous(),
+            q_eff.contiguous(), q_norm.contiguous(), d=layout.d)
         return d2, layout.unpack_attrs(words)
 
     return fetch_fn
@@ -48,6 +35,6 @@ class FusedEngine:
     """A layout and its fetch closure: one packed row gather per beam
     expansion (the split path takes two)."""
 
-    def __init__(self, layout: FusedLayout, *, use_kernel: bool = False):
+    def __init__(self, layout: FusedLayout):
         self.layout = layout
-        self.fetch_fn = make_fetch_fn(layout, use_kernel=use_kernel)
+        self.fetch_fn = make_fetch_fn(layout)

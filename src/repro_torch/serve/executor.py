@@ -78,8 +78,7 @@ class Executor:
         """FusedEngine over the index's packed layout."""
         if vec_dtype not in self._engines:
             self._engines[vec_dtype] = FusedEngine(
-                self.index.fused_layout(vec_dtype),
-                use_kernel=self.use_kernel)
+                self.index.fused_layout(vec_dtype))
         return self._engines[vec_dtype]
 
     # -- graph route (JAG traversal; Algorithm 2) --------------------------

@@ -8,6 +8,10 @@ a ``repro``-built index on the same data and seeds. The integer pieces of
 an insert step (pool dedup, reverse-edge scatter, overflow selection) and
 the prune on identical float inputs are compared exactly. Archives written
 by the port load in the reference, and back.
+
+Run as a script, ``python tests/test_torch_build.py --n 20000 [--degree R
+--ls-build L --cand-pool C --batch-size B]`` holds the two builds against
+each other at a chosen size and MSTuring's width (``compare_builds``).
 """
 import numpy as np
 import jax.numpy as jnp
@@ -162,3 +166,56 @@ def test_weight_mode_builds():
     assert int(torch.sum(idx.graph >= 0, dim=1).max()) <= 8
     res = idx.search(tds.queries, tds.filt, k=5, ls=16)
     assert res.ids.shape == (8, 5)
+
+
+def compare_builds(n: int, d: int, n_queries: int, **kw) -> dict:
+    """Build the reference's index and the port's on the same
+    msturing_subset data and seeds, on the CPU, and serve every query
+    through the graph route of each: recall@10 against the reference's
+    exact scan, build seconds and degree stats."""
+    import time
+    rds = RS.msturing_subset(n=n, d=d, b=n_queries, seed=3)
+    tds = TS.msturing_subset(n=n, d=d, b=n_queries, seed=3, device="cpu")
+    out = {"n": n, "d": d, "queries": n_queries, "config": kw}
+    t0 = time.perf_counter()
+    ridx = RIndex.build(rds.xb, rds.attr, RConfig(**kw))
+    out["reference_build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tidx = JAGIndex.build(tds.xb, tds.attr, JAGConfig(**kw), device="cpu")
+    out["port_build_s"] = time.perf_counter() - t0
+    gt_ids = np.asarray(ridx.executor.prefilter(jnp.asarray(rds.queries),
+                                                rds.filt, k=K).ids)
+    r = ridx.search(rds.queries, rds.filt, k=K, ls=LS)
+    t = tidx.search(tds.queries, tds.filt, k=K, ls=LS)
+    out["reference_recall"] = float(recall_at_k(
+        np.asarray(r.ids), np.asarray(r.primary) == 0, gt_ids).mean())
+    out["port_recall"] = float(recall_at_k(
+        t.ids.numpy(), t.primary.numpy() == 0, gt_ids).mean())
+    rdeg = np.asarray(ridx.graph >= 0).sum(1)
+    out["reference_degree"] = dict(mean=float(rdeg.mean()),
+                                   min=int(rdeg.min()), max=int(rdeg.max()))
+    out["port_degree"] = tidx.degree_stats()
+    return out
+
+
+if __name__ == "__main__":
+    # exits 1 if the port's graph-route recall is more than 0.02 below the
+    # reference's
+    import argparse
+    import json
+    import sys
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--n", type=int, default=20000)
+    ap.add_argument("--d", type=int, default=100)
+    ap.add_argument("--queries", type=int, default=256)
+    ap.add_argument("--degree", type=int, default=32)
+    ap.add_argument("--ls-build", type=int, default=64)
+    ap.add_argument("--batch-size", type=int, default=512)
+    ap.add_argument("--cand-pool", type=int, default=192)
+    a = ap.parse_args()
+    res = compare_builds(a.n, a.d, a.queries, degree=a.degree,
+                         ls_build=a.ls_build, batch_size=a.batch_size,
+                         cand_pool=a.cand_pool, ov_max=2 * a.batch_size)
+    print(json.dumps(res))
+    sys.exit(0 if res["port_recall"] >= res["reference_recall"] - 0.02
+             else 1)
