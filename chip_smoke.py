@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port of JAG (``src/repro_torch``) on one H100.
 
     python3 chip_smoke.py [--n N] [--degree R] [--ls-build L] [--batch-size B]
-                          [--cand-pool C] [--out report.json]
+                          [--cand-pool C] [--seed S] [--out report.json]
                           [--profile trace.json]
 
 Phases, in order; any failure ends the script with a non-zero exit and no
@@ -13,11 +13,15 @@ result line:
 2. Kernel build: nvcc compiles every kernel of ``src/repro_torch/csrc``
    (one process per source, all at once).
 3. Kernels against their plain versions, at the shapes the main path gives
-   them (slice A's data and its per-query plan): max errors, kernel time,
-   plain-version time and a one-call PyTorch yardstick where there is one.
-   d2 tolerance: |kernel - plain| <= 1e-5 * (|x|^2 + |q|^2), the magnitude
-   of the terms the norm form sums (FP32 sum order differs); attr words,
-   ids and popcounts are bit-exact.
+   them (slice A's data and its per-query plan, slice C's prefill): max
+   errors, kernel time, plain-version time and a one-call PyTorch
+   yardstick where there is one. d2 tolerance: |kernel - plain| <= 1e-5 *
+   (|x|^2 + |q|^2), the magnitude of the terms the norm form sums (FP32 sum
+   order differs); attr words, ids and popcounts are bit-exact. Attention
+   in bf16: |kernel - plain| <= 2^-7 |plain| + 1e-5, one bf16 rounding step
+   (both round float32 values that differ in the sum order). gather_dist
+   and l2dist have no caller on a path; they are held at slice A's graph
+   shapes and at the prefilter scan's and kernels_bench's widths.
 4. Slice A, the main path at MSTuring's published width: msturing_subset
    (d = 100, 30 Bernoulli(1/2) subset attributes, N = 1,000,000),
    ``JAGIndex.build`` on the card (degree 128, ls_build 96, cand_pool
@@ -25,13 +29,30 @@ result line:
    ls = 64 stays under the bar at this N, PERF.md); every row's degree
    must be at least R / 8. Then 1024 queries through
    ``search_auto(k=10, ls=64, layout="fused")``; the req_ks mix (0..12
-   required bits) spans the prefilter, graph and postfilter routes. Every
-   kernel's launch count in that run must be above 0, and the graph-routed
-   queries' recall@10 against the exact scan at least 0.80.
+   required bits) spans the prefilter, graph and postfilter routes. The
+   launch count of each of the three kernels of this path in that run must
+   be above 0, and the graph-routed queries' recall@10 against the exact
+   scan at least 0.80.
 5. Slice B, the Boolean call site of the deficit kernel: msturing_bool
    (N = 100,000, 15 variables) through the prefilter scan on the card with
    the kernels, whose ids must equal the same scan's through the plain
    versions.
+6. Slice C, dense-LM serving: qwen3-1.7b at its published width and depth
+   (28 layers, d_model 2048, 16 heads, 8 kv heads, head_dim 128, vocab
+   151,936), random weights from ``--seed`` on the card, matrices kept in
+   bf16 for serving. 4 requests of 4,096 prompt tokens (LM_SHAPES
+   prefill_32k, batch 32 x 32,768, cut to 4 x 4,096 to fit the time
+   limit): one ``prefill`` through the flash-attention kernel (exactly 28
+   launches), then 32 greedy ``decode_step``s. Checks: in float32 (the
+   masters, before the cast), the prefill's logits with the kernel against
+   the plain attention within 1e-4 of the largest logit (float32 sum
+   order). In bf16 the two differ by more: an attention output that moves
+   by one bf16 step moves every later layer's roundings. The yardstick is
+   bf16's own error, e = max |plain bf16 logits - plain float32 logits|:
+   each bf16 prefill lies about e from the float32 one, so two of them lie
+   up to 2e apart. The kernel's bf16 prefill must stay within 2e of the
+   plain bf16 prefill, and the first decode step's logits within 2e of a
+   prefill over T + 1 tokens.
 
 The last lines are nvidia-smi's card line, one JSON object with a record
 per kernel, and ``{"ok": true, "device": {...}}``.
@@ -39,6 +60,7 @@ per kernel, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -47,9 +69,14 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM FP32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 DTOL = 1e-5                    # d2 tolerance, relative to |x|^2 + |q|^2
 RECALL_MIN = 0.80
 MIN_DEGREE_SHARE = 1 / 8       # a built row below R / 8 edges is a fault
+LM_ARCH = "qwen3-1.7b"
+LM_BATCH, LM_PROMPT, LM_STEPS = 4, 4096, 32   # prefill_32k cut to fit
+LM_F32_TOL = 1e-4              # float32 prefill, of the largest logit
+LM_BF16_NOISE = 2              # bf16 checks: widths of bf16's own error
 
 
 def log(msg: str) -> None:
@@ -71,9 +98,10 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple:
+def bound_ms(n_bytes: float, n_ops: float,
+             ops_per_s: float = FP32_OPS_PER_S) -> tuple:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -142,12 +170,15 @@ def main(argv=None) -> int:
                     help="JAGConfig.ls_build of slice A's build")
     ap.add_argument("--cand-pool", type=int, default=192,
                     help="JAGConfig.cand_pool of slice A's build")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of slice C's random weights and prompts")
     ap.add_argument("--out", default=None,
                     help="also write the full report here as JSON")
     ap.add_argument("--profile", default=None,
-                    help="also trace one main-path run with torch.profiler "
-                         "and write its Chrome trace here (the device busy "
-                         "share in PERF.md)")
+                    help="also trace one main-path run of slice A and one "
+                         "decode step of slice C with torch.profiler and "
+                         "write their Chrome traces here and beside it "
+                         "(.decode.json; the device busy shares in PERF.md)")
     args = ap.parse_args(argv)
 
     import torch
@@ -156,6 +187,8 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import numpy as np
+    from repro_torch import configs
+    from repro_torch.configs.shapes import LM_SHAPES
     from repro_torch.core.filters import pack_bits, onehot_words
     from repro_torch.core.ground_truth import exact_filtered_knn
     from repro_torch.core.jag import JAGConfig, JAGIndex
@@ -163,6 +196,7 @@ def main(argv=None) -> int:
     from repro_torch.data import synthetic
     from repro_torch.device import resolve_device
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.models import transformer as TT
     from repro_torch.serve.layout import build_layout
     from repro_torch.serve.planner import PlannerConfig, plan_per_query
 
@@ -246,6 +280,91 @@ def main(argv=None) -> int:
         plain_ms=cuda_ms(torch, lambda: ref.fused_expand(
             lay.packed, ids, qg, qgn, d=D), 10),
         bound_ms=b, bound_by=o, library_ms=None)
+
+    # gather_dist (no caller on a path): the graph group's expansion shapes
+    kg = ops.gather_dist(xb, ids, qg)
+    err = check_d2(torch, "gather_dist", kg, ref.gather_dist(xb, ids, qg),
+                   scale)
+    b, o = bound_ms(Bg * C * (D * 4 + 4 + 4) + Bg * D * 4, 3 * Bg * C * D)
+    kernels["gather_dist"] = dict(
+        name="gather_dist", route="cuda",
+        source="src/repro_torch/csrc/gather_dist.cu",
+        replaces="src/repro/kernels/gather_dist.py:34",
+        shape=f"xb[{N},{D}] ids[{Bg},{C}]", max_abs_err=err,
+        ms=cuda_ms(torch, lambda: ops.gather_dist(xb, ids, qg), 50),
+        plain_ms=cuda_ms(torch, lambda: ref.gather_dist(xb, ids, qg), 10),
+        bound_ms=b, bound_by=o, library_ms=None)
+    del kg
+
+    # l2dist (no caller on a path): every query against a scan-sized slab
+    # of slice A's rows, and kernels_bench's 256 x 8192 x 128
+    xl = xb[:min(N, 262_144)]
+
+    def check_l2(qq, xx):
+        got, want = ops.l2dist(qq, xx), ref.l2dist(qq, xx)
+        sc = torch.sum(qq * qq, -1)[:, None] + torch.sum(xx * xx, -1)[None]
+        return check_d2(torch, f"l2dist {tuple(qq.shape)}x{tuple(xx.shape)}",
+                        got, want, sc)
+
+    err = check_l2(q_all, xl)
+    b, o = bound_ms((NQ * D + len(xl) * D + NQ * len(xl)) * 4,
+                    2 * NQ * len(xl) * D)
+    kernels["l2dist"] = dict(
+        name="l2dist", route="cuda", source="src/repro_torch/csrc/l2dist.cu",
+        replaces="src/repro/kernels/l2dist.py:44",
+        shape=f"q[{NQ},{D}] xb[{len(xl)},{D}]", max_abs_err=err,
+        ms=cuda_ms(torch, lambda: ops.l2dist(q_all, xl), 10),
+        plain_ms=cuda_ms(torch, lambda: ref.l2dist(q_all, xl), 3),
+        bound_ms=b, bound_by=o,
+        library_ms=cuda_ms(torch, lambda: torch.mm(q_all, xl.T), 10))
+    qb8 = torch.randn((256, 128), generator=gen, device=dev)
+    xb8 = torch.randn((8192, 128), generator=gen, device=dev)
+    bench = dict(max_abs_err=check_l2(qb8, xb8),
+                 ms=cuda_ms(torch, lambda: ops.l2dist(qb8, xb8), 50),
+                 library_ms=cuda_ms(torch, lambda: torch.mm(qb8, xb8.T), 50))
+    bench["bound_ms"], bench["bound_by"] = bound_ms(
+        (256 * 128 + 8192 * 128 + 256 * 8192) * 4, 2 * 256 * 8192 * 128)
+    log(f"[kernels] l2dist q[256,128] xb[8192,128] (kernels_bench): "
+        f"{bench['ms']:.4f} ms (bound {bench['bound_ms']:.4f} ms by "
+        f"{bench['bound_by']}, torch.mm {bench['library_ms']:.4f} ms)")
+    report["l2dist_kernels_bench"] = bench
+    del xl, qb8, xb8
+    torch.cuda.empty_cache()
+
+    # flash_attention: one layer of slice C's prefill
+    lm = configs.get(LM_ARCH).CONFIG
+    fshape = (LM_BATCH, lm.n_heads, LM_PROMPT, lm.hd)
+    kshape = (LM_BATCH, lm.n_kv_heads, LM_PROMPT, lm.hd)
+    fq, fk, fv = (torch.randn(sh, generator=gen, device=dev).to(lm.dtype)
+                  for sh in (fshape, kshape, kshape))
+    fo = ops.flash_attention(fq, fk, fv).float()
+    fp = ref.flash_attention(fq, fk, fv).float()
+    ferr = (fo - fp).abs()
+    bad = ferr > 2.0 ** -7 * fp.abs() + 1e-5
+    if bool(bad.any()):
+        raise AssertionError(f"flash_attention: {int(bad.sum())} outputs off"
+                             f" by more than a bf16 step (max "
+                             f"{float(ferr.max())})")
+    n_el = 2 * fq.numel() + 2 * fk.numel()         # q, k, v and out
+    b, o = bound_ms(n_el * fq.element_size(),
+                    2 * LM_BATCH * lm.n_heads * LM_PROMPT ** 2 * lm.hd,
+                    BF16_OPS_PER_S)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kernels["flash_attention"] = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attn.py:66",
+        shape=f"q[{','.join(map(str, fshape))}] "
+              f"kv[{','.join(map(str, kshape))}] bf16 causal",
+        max_abs_err=float(ferr.max()),
+        ms=cuda_ms(torch, lambda: ops.flash_attention(fq, fk, fv), 5),
+        plain_ms=cuda_ms(torch, lambda: ref.flash_attention(fq, fk, fv), 2,
+                         warmup=1),
+        bound_ms=b, bound_by=o,
+        library_ms=cuda_ms(torch, lambda: sdpa(fq, fk, fv, is_causal=True,
+                                               enable_gqa=True), 10))
+    del fq, fk, fv, fo, fp, ferr, bad
+    torch.cuda.empty_cache()
 
     # gather_dist_tile: one block of the prefilter group's scan
     block = 4096
@@ -355,10 +474,12 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     log(f"[slice A] launches in the main-path run: {launches}")
-    for name, n_launch in launches.items():
-        if n_launch <= 0:
+    for name in ("fused_expand", "gather_dist_tile", "bitset_dist"):
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never ran on the main path")
-        kernels[name]["launches"] = n_launch
+    for name, n_launch in launches.items():   # gather_dist, l2dist: on
+        if name != "flash_attention":         # no path, their 0 is kept
+            kernels[name]["launches"] = n_launch
     cold = {r: (n, s) for r, (n, s) in timings.items()}
     timings.clear()
     res2 = idx.search_auto(q_all, ds.filt, k=K, ls=LS, max_iters=MI,
@@ -457,6 +578,145 @@ def main(argv=None) -> int:
         f"plain scan ({n_valid} hits), launches {lb}, "
         f"{time.perf_counter() - t0:.1f} s")
     report["slice_b"] = {"launches": lb, "hits": n_valid}
+
+    # -- 6. slice C: dense-LM serving ------------------------------------
+    del xbb, qb, got, want
+    torch.cuda.empty_cache()
+    full = LM_SHAPES["prefill_32k"]
+    log(f"[slice C] {lm.name}: {lm.n_layers} layers, d_model {lm.d_model}, "
+        f"{lm.n_heads} heads, {lm.n_kv_heads} kv heads, head_dim {lm.hd}, "
+        f"d_ff {lm.d_ff}, vocab {lm.vocab}, {lm.param_count()} params, "
+        f"seed {args.seed}")
+    log(f"[slice C] shape cut: LM_SHAPES['prefill_32k'] batch "
+        f"{full['batch']} x {full['seq']} -> {LM_BATCH} x {LM_PROMPT} to fit "
+        f"the script's time limit; then {LM_STEPS} greedy decode steps")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    params = TT.init_params(lm, gen, dev)
+    toks = torch.randint(0, lm.vocab, (LM_BATCH, LM_PROMPT), generator=gen,
+                         device=dev)
+
+    def biggest(t):
+        return float(t.float().abs().max())
+
+    # float32: the kernel against the plain attention, sum order only
+    lm32 = dataclasses.replace(lm, dtype=torch.float32)
+    c32 = TT.init_cache(lm32, LM_BATCH, LM_PROMPT, dev)
+    l32, _ = TT.prefill(lm32, params, toks, c32)
+    l32p, _ = TT.prefill(lm32, params, toks, c32, impl=ref)
+    del c32
+    err32 = biggest(l32 - l32p)
+    log(f"[slice C] float32 prefill, kernel vs plain attention: max |d| "
+        f"{err32:.3g} of largest logit {biggest(l32p):.4g}")
+    if err32 > LM_F32_TOL * biggest(l32p):
+        raise AssertionError("float32 prefill: the kernel moves the logits "
+                             f"by {err32} (> {LM_F32_TOL} of the largest)")
+
+    # bf16 serving: matrices stored in bf16 (the float32 masters go)
+    TT.cast_matrices(params, lm.dtype)
+    torch.cuda.empty_cache()
+    cache = TT.init_cache(lm, LM_BATCH, LM_PROMPT + LM_STEPS, dev)
+    log(f"[slice C] set-up {time.perf_counter() - t0:.1f} s (init, float32 "
+        f"check, cast)")
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = TT.prefill(lm, params, toks, cache)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    lc = dict(ops.LAUNCHES)
+    log(f"[slice C] launches in the prefill: {lc}")
+    if lc["flash_attention"] != lm.n_layers:
+        raise AssertionError(f"prefill launched flash_attention "
+                             f"{lc['flash_attention']} times, not "
+                             f"{lm.n_layers}")
+    kernels["flash_attention"]["launches"] = lc["flash_attention"]
+    lp, _ = TT.prefill(lm, params, toks, cache, impl=ref)
+    # bf16's own error: the plain bf16 prefill against float32
+    noise = biggest(lp.float() - l32p)
+    tol = LM_BF16_NOISE * noise
+    err = biggest(logits - lp)
+    log(f"[slice C] bf16 prefill, kernel vs plain attention: max |d| "
+        f"{err:.4g} (limit {tol:.4g}: {LM_BF16_NOISE} x bf16 vs float32, "
+        f"{noise:.4g})")
+    if err > tol:
+        raise AssertionError(f"bf16 prefill: the kernel moves the logits by "
+                             f"{err} (> {tol})")
+
+    # serving alone from here: one prefill, then the decode steps; the
+    # peak covers these and nothing of the checks above
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, cache = TT.prefill(lm, params, toks, cache)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    if tuple(logits.shape) != (LM_BATCH, lm.padded_vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} are not "
+                             "finite or not [B, V]")
+
+    def decode(i, nxt):
+        pos = torch.full((LM_BATCH,), LM_PROMPT + i, dtype=torch.int32,
+                         device=dev)
+        dl, _ = TT.decode_step(lm, params, cache, nxt, pos)
+        return dl, dl[:, :lm.vocab].argmax(-1)
+
+    first = logits[:, :lm.vocab].argmax(-1)
+    t0 = time.perf_counter()
+    d0, nxt = decode(0, first)
+    torch.cuda.synchronize()
+    t_step0 = time.perf_counter() - t0
+    # steps 2..LM_STEPS: one window, synchronised only at its two ends;
+    # events between the steps give each step's interval for the median
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(LM_STEPS)]
+    t0 = time.perf_counter()
+    marks[0].record()
+    for i in range(1, LM_STEPS):
+        dl, nxt = decode(i, nxt)
+        marks[i].record()
+    torch.cuda.synchronize()
+    t_window = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    t_decode = t_window / (LM_STEPS - 1)
+    if args.profile:
+        pos = torch.full((LM_BATCH,), LM_PROMPT + LM_STEPS - 1,
+                         dtype=torch.int32, device=dev)
+        report["slice_c_decode_profile"] = profile_main_path(
+            torch, lambda: TT.decode_step(lm, params, cache, nxt, pos),
+            str(Path(args.profile).with_suffix(".decode.json")))
+    if not bool(torch.isfinite(dl).all()):
+        raise AssertionError("decode logits are not finite")
+    del cache
+    toks1 = torch.cat([toks, first[:, None]], dim=1)
+    l1, _ = TT.prefill(lm, params, toks1,
+                       TT.init_cache(lm, LM_BATCH, LM_PROMPT + 1, dev))
+    derr = biggest(d0 - l1)
+    log(f"[slice C] decode at position {LM_PROMPT} vs a prefill over "
+        f"{LM_PROMPT + 1} tokens: max |d| {derr:.4g} (limit {tol:.4g})")
+    if derr > tol:
+        raise AssertionError(f"decode disagrees with prefill by {derr} "
+                             f"(> {tol})")
+    n_tok = LM_BATCH * LM_PROMPT
+    log(f"[slice C] prefill {n_tok} tokens in {t_prefill * 1e3:.1f} ms: "
+        f"{n_tok / t_prefill:.1f} tokens/s (first run {t_first * 1e3:.1f} "
+        f"ms); decode {t_decode * 1e3:.3f} ms per step of {LM_BATCH} "
+        f"tokens (steps 2-{LM_STEPS} in one window; median step "
+        f"{float(np.median(step_ms)):.3f} ms, the first step took "
+        f"{t_step0 * 1e3:.1f} ms); peak memory of the prefill and decode "
+        f"{peak / 2 ** 30:.2f} GiB")
+    report["slice_c"] = dict(
+        arch=lm.name, batch=LM_BATCH, prompt=LM_PROMPT, steps=LM_STEPS,
+        prefill_s=t_prefill, prefill_first_s=t_first,
+        prefill_tokens_per_s=n_tok / t_prefill, decode_ms_per_step=t_decode
+        * 1e3, decode_median_ms=float(np.median(step_ms)),
+        decode_first_ms=t_step0 * 1e3, decode_step_ms=step_ms, peak_bytes=peak,
+        launches=lc, f32_err=err32, bf16_err=err, bf16_vs_f32=noise,
+        decode_vs_prefill=derr)
+    del params, logits, lp, l32, l32p, l1
+    torch.cuda.empty_cache()
 
     report["kernels"] = [kernels[n] for n in _build.SOURCES]
     report["total_s"] = time.perf_counter() - t_start

@@ -23,15 +23,20 @@ from typing import Dict, Sequence
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("fused_expand", "gather_dist_tile", "bitset_dist")
+SOURCES = ("fused_expand", "gather_dist_tile", "bitset_dist", "gather_dist",
+           "l2dist", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "fused_expand": ("fused_expand_f32", [_P] * 6 + [_I] * 6 + [_P]),
     "gather_dist_tile": ("gather_dist_tile_f32", [_P] * 4 + [_I] * 5 + [_P]),
     "bitset_dist": ("bitset_dist_u32", [_P] * 3 + [_I] * 5 + [_P]),
+    "gather_dist": ("gather_dist", [_P] * 4 + [_I] * 6 + [_P]),
+    "l2dist": ("l2dist", [_P] * 3 + [_I] * 5 + [_P]),
+    "flash_attention": ("flash_attention",
+                        [_P] * 4 + [_I] * 8 + [_F, _I, _P]),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

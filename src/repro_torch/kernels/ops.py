@@ -13,6 +13,7 @@ no launch: the wrapper returns it without calling the kernel or counting.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import torch
@@ -144,3 +145,82 @@ def subset_deficit(f: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
 def hamming(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Packed Hamming distance matrix [B, N]."""
     return bitset_dist(a, b, op="xor")
+
+
+def gather_dist(xb: torch.Tensor, ids: torch.Tensor,
+                q: torch.Tensor) -> torch.Tensor:
+    """Row-granular fused gather + distance: xb [N, d] f32 or bf16, ids
+    int32 [B, C] (clipped into [0, N)), q [B, d] -> f32 [B, C], the
+    difference form sum_k (xb[ids[b, c], k] - q[b, k])^2."""
+    if not _on_card(xb, ids, q):
+        return ref.gather_dist(xb, ids, q)
+    N, d = xb.shape
+    B, C = ids.shape
+    if N == 0:
+        raise ValueError("xb has no rows to gather")
+    if d * 4 > 48 * 1024:
+        raise ValueError(f"d={d} exceeds the kernel's shared query buffer")
+    if xb.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"xb: dtype {xb.dtype}, expected float32 or bfloat16")
+    _expect(xb, "xb", xb.dtype, (N, d))
+    _expect(ids, "ids", torch.int32, (B, C))
+    q = q.float().contiguous()
+    _expect(q, "q", torch.float32, (B, d))
+    out = torch.empty((B, C), dtype=torch.float32, device=xb.device)
+    if out.numel():
+        _launch("gather_dist", xb, ids, q, out, B, C, N, d,
+                int(xb.dtype == torch.bfloat16))
+    return out
+
+
+def l2dist(q: torch.Tensor, xb: torch.Tensor) -> torch.Tensor:
+    """Squared L2 distance matrix: q [B, d], xb [N, d], both f32 or both
+    bf16 -> f32 [B, N] = max(|q|^2 + |x|^2 - 2 q.x, 0), the product in
+    FP32 on the CUDA cores (never TF32)."""
+    if not _on_card(q, xb):
+        return ref.l2dist(q, xb)
+    B, d = q.shape
+    N = xb.shape[0]
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q: dtype {q.dtype}, expected float32 or bfloat16")
+    _expect(q, "q", q.dtype, (B, d))
+    _expect(xb, "xb", q.dtype, (N, d))
+    out = torch.empty((B, N), dtype=torch.float32, device=q.device)
+    if out.numel():
+        _launch("l2dist", q, xb, out, B, N, d,
+                int(q.dtype == torch.bfloat16))
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """Online-softmax attention in float32 (see ``ref.flash_attention``).
+
+    q [B, H, Tq, D], k/v [B, Hkv, Tk, D], all f32 or all bf16, D <= 256
+    -> [B, H, Tq, D] in q's dtype. Query head h reads kv head h // (H/Hkv).
+    Causal attention (mask row >= col) needs Tq == Tk and raises otherwise.
+    The kernel masks ragged Tq, Tk and D itself, so nothing is padded.
+    """
+    if not _on_card(q, k, v):
+        return ref.flash_attention(q, k, v, causal=causal)
+    B, H, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    if causal and Tq != Tk:
+        raise ValueError(f"causal attention needs Tq == Tk, got {Tq}, {Tk}")
+    if H % Hkv:
+        raise ValueError(f"{H} query heads are not a multiple of {Hkv}")
+    if D > 256:
+        raise ValueError(f"head_dim {D} > 256, the kernel's widest tile")
+    if B * H > 65535:
+        raise ValueError(f"B * H = {B * H} exceeds the grid's y extent")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q: dtype {q.dtype}, expected float32 or bfloat16")
+    _expect(q, "q", q.dtype, (B, H, Tq, D))
+    _expect(k, "k", q.dtype, (B, Hkv, Tk, D))
+    _expect(v, "v", q.dtype, (B, Hkv, Tk, D))
+    out = torch.empty_like(q)
+    if out.numel():
+        _launch("flash_attention", q, k, v, out, B, H, Hkv, Tq, Tk, D,
+                int(causal), int(q.dtype == torch.bfloat16),
+                1.0 / math.sqrt(D))
+    return out

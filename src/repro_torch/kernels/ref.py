@@ -3,9 +3,12 @@
 Each function has the signature of its wrapper in ``kernels/ops.py``. The
 wrappers call these for tensors on the CPU; ``chip_smoke.py`` holds each
 CUDA kernel against its plain version on the card, and the exact scan can
-run through this module (``impl=ref``) to compare a whole route.
+run through this module (``impl=ref``) to compare a whole route, as can
+the LM's prefill (``models.transformer.prefill(..., impl=ref)``).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -80,3 +83,66 @@ def subset_deficit(f: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
 def hamming(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Packed Hamming distance matrix [B, N]."""
     return bitset_dist(a, b, op="xor")
+
+
+def gather_dist(xb: torch.Tensor, ids: torch.Tensor,
+                q: torch.Tensor) -> torch.Tensor:
+    """Row gather then squared L2 in the difference form: xb [N, d] (f32 or
+    bf16, read as f32), ids int[B, C] (clamped into [0, N)), q [B, d] ->
+    f32 [B, C] = sum_k (xb[ids[b, c], k] - q[b, k])^2, not clamped."""
+    rows = xb[ids.long().clamp(0, xb.shape[0] - 1)].float()
+    diff = rows - q.float()[:, None, :]
+    return torch.sum(diff * diff, dim=-1)
+
+
+def l2dist(q: torch.Tensor, xb: torch.Tensor) -> torch.Tensor:
+    """Squared L2 distance matrix: q [B, d], xb [N, d] (f32 or bf16, read
+    as f32) -> f32 [B, N] = max(|q|^2 + |x|^2 - 2 q.x, 0)."""
+    q = q.float()
+    xb = xb.float()
+    qn = torch.sum(q * q, dim=-1, keepdim=True)
+    xn = torch.sum(xb * xb, dim=-1)
+    return torch.clamp_min(qn + xn[None, :] - 2.0 * (q @ xb.T), 0.0)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """Online-softmax attention with the TPU kernel's arithmetic.
+
+    q [B, H, Tq, D], k/v [B, Hkv, Tk, D] (H a multiple of Hkv; query head h
+    reads kv head h // (H / Hkv)), any float dtype -> q's dtype. Everything
+    runs in float32: q is scaled by 1/sqrt(D) before the product, keys come
+    in blocks of 128 with a running max and sum, the causal mask is
+    ``row >= col`` and the same -inf guards keep fully masked rows at 0.
+    Causal attention needs Tq == Tk (the mask has no offset).
+    """
+    B, H, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    if H % Hkv:
+        raise ValueError(f"{H} query heads are not a multiple of {Hkv}")
+    if causal and Tq != Tk:
+        raise ValueError(f"causal attention needs Tq == Tk, got {Tq}, {Tk}")
+    G = H // Hkv
+    block_k = 128
+    qf = (q.float() * (1.0 / math.sqrt(D))).reshape(B, Hkv, G * Tq, D)
+    rows = torch.arange(Tq, device=q.device).repeat(G)[:, None]
+    m = torch.full((B, Hkv, G * Tq, 1), -math.inf, device=q.device)
+    l = torch.zeros((B, Hkv, G * Tq, 1), device=q.device)
+    acc = torch.zeros((B, Hkv, G * Tq, D), device=q.device)
+    for k0 in range(0, Tk, block_k):
+        kb = k[:, :, k0:k0 + block_k].float()
+        vb = v[:, :, k0:k0 + block_k].float()
+        s = qf @ kb.transpose(-1, -2)                 # [B, Hkv, G*Tq, bk]
+        if causal:
+            cols = torch.arange(k0, k0 + kb.shape[2], device=q.device)
+            s = torch.where(rows >= cols[None, :], s, -math.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.exp(s - m_safe)
+        p = torch.where(torch.isfinite(s), p, 0.0)
+        corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+        l = l * corr + torch.sum(p, dim=-1, keepdim=True)
+        acc = acc * corr + p @ vb
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)
+    return out.reshape(B, H, Tq, D).to(q.dtype)

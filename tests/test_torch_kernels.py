@@ -5,8 +5,12 @@ On the CPU every ``repro_torch.kernels.ops`` wrapper runs its plain version
 (``kernels/ref.py``); those are held against ``repro.kernels.ops`` run in
 Pallas interpret mode and against ``repro.kernels.ref``. ``bitset_dist`` is
 exact; distances are allclose at rtol 1e-5 (another float summation order).
-The CUDA kernels are held against their plain versions in
-``test_torch_cuda.py``.
+Attention in float32 is allclose at 1e-5 (the plain version takes keys in
+blocks of 128, the Pallas runs here in blocks of 64: another partition of
+the online softmax); in bf16 the outputs, rounded to bf16 from float32
+values that agree to about 1e-6, may differ by one bf16 rounding step,
+2^-7 of the value. The CUDA kernels are held against their plain versions
+in ``test_torch_cuda.py``.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -15,6 +19,7 @@ import torch
 
 from repro.kernels import ops as rops
 from repro.kernels import ref as rref
+from repro.kernels.flash_attn import flash_attention as rflash
 from repro_torch.kernels import ops, ref
 
 torch.set_num_threads(1)
@@ -115,3 +120,97 @@ def test_wrappers_count_no_launch_on_the_cpu_and_reject_mixed_devices():
     assert all(v == 0 for v in ops.LAUNCHES.values())
     with pytest.raises(ValueError):
         ops.bitset_dist(a, a, op="and")
+
+
+def _bf16_np(a):
+    """float32 values rounded to bf16, as float32 (one value for both
+    packages)."""
+    return np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,C,N,d", [(4, 8, 64, 16), (16, 32, 200, 64),
+                                     (2, 5, 33, 100)])
+def test_gather_dist_plain_matches_reference(B, C, N, d, dtype):
+    rng = np.random.default_rng(6)
+    xb = rng.normal(size=(N, d)).astype(np.float32)
+    if dtype == "bfloat16":
+        xb = _bf16_np(xb)
+    q = rng.normal(size=(B, d)).astype(np.float32)
+    ids = rng.integers(-4, N + 4, (B, C)).astype(np.int32)   # clipped
+    txb = _t(xb).to(getattr(torch, dtype))
+    got = ops.gather_dist(txb, _t(ids), _t(q))
+    want = rops.gather_dist(jnp.asarray(xb, getattr(jnp, dtype)), ids, q,
+                            interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-4)
+    oracle = rref.gather_dist_ref(xb, np.clip(ids, 0, N - 1), q)
+    np.testing.assert_allclose(got.numpy(), np.asarray(oracle), rtol=1e-5,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,N,d", [(8, 32, 16), (64, 100, 48),
+                                   (33, 257, 130)])
+def test_l2dist_plain_matches_reference(B, N, d, dtype):
+    rng = np.random.default_rng(7)
+    q = rng.normal(size=(B, d)).astype(np.float32)
+    xb = rng.normal(size=(N, d)).astype(np.float32)
+    if dtype == "bfloat16":
+        q, xb = _bf16_np(q), _bf16_np(xb)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    got = ops.l2dist(_t(q).to(tdt), _t(xb).to(tdt))
+    want = rops.l2dist(jnp.asarray(q, jdt), jnp.asarray(xb, jdt),
+                       interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-4)
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(rref.l2dist_ref(q, xb)),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("B,H,Hkv,Tq,Tk,D,causal", [
+    (1, 2, 2, 64, 64, 32, True),
+    (2, 4, 2, 128, 128, 64, True),     # GQA
+    (1, 4, 1, 64, 128, 32, False),     # MQA, cross-length, bidirectional
+    (1, 2, 2, 256, 256, 16, True),     # several q and k blocks
+    (1, 2, 1, 200, 200, 12, True),     # ragged T and D
+])
+def test_flash_attention_plain_matches_reference(B, H, Hkv, Tq, Tk, D,
+                                                 causal):
+    rng = np.random.default_rng(0)
+    q = rng.normal(size=(B, H, Tq, D)).astype(np.float32)
+    k = rng.normal(size=(B, Hkv, Tk, D)).astype(np.float32)
+    v = rng.normal(size=(B, Hkv, Tk, D)).astype(np.float32)
+    got = ops.flash_attention(_t(q), _t(k), _t(v), causal=causal).numpy()
+    if Tq % 64 == 0 and Tk % 64 == 0:        # the Pallas needs whole blocks
+        want = rflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                      causal=causal, block_q=64, block_k=64, interpret=True)
+        np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)
+    oracle = rref.flash_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                      jnp.asarray(v), causal=causal)
+    np.testing.assert_allclose(got, np.asarray(oracle), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_flash_attention_plain_bf16():
+    rng = np.random.default_rng(1)
+    q, k, v = (_bf16_np(rng.normal(size=(1, 2, 128, 32))) for _ in range(3))
+    got = ops.flash_attention(*(_t(a).to(torch.bfloat16) for a in (q, k, v)))
+    assert got.dtype == torch.bfloat16
+    want = np.asarray(rflash(*(jnp.asarray(a, jnp.bfloat16)
+                               for a in (q, k, v)), interpret=True),
+                      np.float32)
+    got = got.float().numpy()
+    assert np.all(np.abs(got - want) <= 2.0 ** -7 * np.abs(want) + 1e-6)
+
+
+def test_flash_attention_causal_needs_equal_lengths():
+    q = torch.zeros((1, 2, 8, 16))
+    k = torch.zeros((1, 2, 16, 16))
+    with pytest.raises(ValueError, match="Tq == Tk"):
+        ops.flash_attention(q, k, k, causal=True)
+    with pytest.raises(ValueError, match="Tq == Tk"):
+        ref.flash_attention(q, k, k, causal=True)
+    assert ops.flash_attention(q, k, k, causal=False).shape == q.shape
