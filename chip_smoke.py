@@ -11,17 +11,22 @@ result line:
 1. Device: CUDA with capability (9, 0); prints nvidia-smi's name and power
    limit.
 2. Kernel build: nvcc compiles every kernel of ``src/repro_torch/csrc``
-   (one process per source, all at once).
+   (one process per source, all at once). The count of ``HGMMA``
+   instructions (wgmma) that ``cuobjdump -sass`` finds in the tensor-core
+   attention library is printed and must be above 0.
 3. Kernels against their plain versions, at the shapes the main path gives
    them (slice A's data and its per-query plan, slice C's prefill): max
    errors, kernel time, plain-version time and a one-call PyTorch
    yardstick where there is one. d2 tolerance: |kernel - plain| <= 1e-5 *
    (|x|^2 + |q|^2), the magnitude of the terms the norm form sums (FP32 sum
    order differs); attr words, ids and popcounts are bit-exact. Attention
-   in bf16: |kernel - plain| <= 2^-7 |plain| + 1e-5, one bf16 rounding step
-   (both round float32 values that differ in the sum order). gather_dist
-   and l2dist have no caller on a path; they are held at slice A's graph
-   shapes and at the prefilter scan's and kernels_bench's widths.
+   in bf16 (the tensor-core kernel): |kernel - plain| <= 2^-7 |plain| +
+   1e-5, one bf16 rounding step (both round float32 values that differ in
+   the sum order and, for the kernel, by p's split into two bf16 halves,
+   about 2^-17 of p); in float32 (the SIMT kernel) 1e-4 |plain| + 1e-4.
+   gather_dist and l2dist have no caller on a path; they are held at slice
+   A's graph shapes and at the prefilter scan's and kernels_bench's widths;
+   the float32 attention kernel at slice C's shape in float32.
 4. Slice A, the main path at MSTuring's published width: msturing_subset
    (d = 100, 30 Bernoulli(1/2) subset attributes, N = 1,000,000),
    ``JAGIndex.build`` on the card (degree 128, ls_build 96, cand_pool
@@ -42,11 +47,13 @@ result line:
    151,936), random weights from ``--seed`` on the card, matrices kept in
    bf16 for serving. 4 requests of 4,096 prompt tokens (LM_SHAPES
    prefill_32k, batch 32 x 32,768, cut to 4 x 4,096 to fit the time
-   limit): one ``prefill`` through the flash-attention kernel (exactly 28
-   launches), then 32 greedy ``decode_step``s. Checks: in float32 (the
-   masters, before the cast), the prefill's logits with the kernel against
-   the plain attention within 1e-4 of the largest logit (float32 sum
-   order). In bf16 the two differ by more: an attention output that moves
+   limit): one ``prefill`` through the tensor-core flash-attention kernel
+   (exactly 28 launches of ``flash_attention``, none of
+   ``flash_attention_f32``), then 32 greedy ``decode_step``s. Checks: in
+   float32 (the masters, before the cast), the prefill's logits with the
+   FP32 SIMT kernel (exactly 28 launches of ``flash_attention_f32``)
+   against the plain attention within 1e-4 of the largest logit (float32
+   sum order). In bf16 the two differ by more: an attention output that moves
    by one bf16 step moves every later layer's roundings. The yardstick is
    bf16's own error, e = max |plain bf16 logits - plain float32 logits|:
    each bf16 prefill lies about e from the float32 one, so two of them lie
@@ -84,12 +91,24 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls.
+
+    A kernel shorter than its host-side launch (a few tens of microseconds
+    through Python and ctypes) would otherwise be timed at the host's
+    launch rate: the stream is held by a sleep kernel while the host
+    enqueues the calls, so that they run back to back on the device.
+    """
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2 * enqueue_s, 1.0) * 2e9))
     start.record()
     for _ in range(iters):
         fn()
@@ -123,6 +142,39 @@ def check_exact(torch, name, got, want):
         raise AssertionError(f"{name}: {n} entries differ from the plain "
                              f"version (max {err})")
     return err
+
+
+def check_flash(torch, ops, ref, q, k, v) -> float:
+    """Max |kernel - plain| of flash_attention, within its dtype's gate.
+
+    bf16: a bf16 step, 2^-7 of the plain output plus 1e-5; float32: 1e-4
+    relative plus 1e-4 (sum order only).
+    """
+    got = ops.flash_attention(q, k, v).float()
+    want = ref.flash_attention(q, k, v).float()
+    err = (got - want).abs()
+    if q.dtype == torch.bfloat16:
+        bad = err > 2.0 ** -7 * want.abs() + 1e-5
+    else:
+        bad = err > 1e-4 * want.abs() + 1e-4
+    if bool(bad.any()):
+        raise AssertionError(f"flash_attention ({q.dtype}): {int(bad.sum())}"
+                             f" outputs off its gate (max {float(err.max())})")
+    return float(err.max())
+
+
+def check_scan_tile(torch, ops, ref, xb, base, q, tile) -> tuple:
+    """gather_dist_tile against its plain version: (max error, bit-exact).
+
+    Fails if the error passes DTOL of |x|^2 + |q|^2; whether the kernel is
+    also bit-exact is the caller's gate.
+    """
+    got = ops.gather_dist_tile(xb, base, q, tile=tile)
+    want = ref.gather_dist_tile(xb, base, q, tile=tile)
+    xn = torch.sum(xb * xb, -1).view(-1, tile)
+    scale = xn[base.long()] + torch.sum(q * q, -1)[:, None]
+    err = check_d2(torch, "gather_dist_tile", got, want, scale)
+    return err, torch.equal(got, want)
 
 
 def profile_main_path(torch, run, trace_path: str) -> dict:
@@ -228,6 +280,11 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
     report["kernel_build_s"] = t_build
+    n_hgmma = _build.sass_count("flash_attention", "HGMMA")
+    log(f"[build] flash_attention: {n_hgmma} HGMMA instructions in its SASS")
+    if n_hgmma == 0:
+        raise AssertionError("flash_attention holds no wgmma instruction")
+    report["flash_attention_hgmma"] = n_hgmma
 
     # -- 3. kernels against their plain versions ---------------------------
     N, D, NQ, K, LS = args.n, 100, 1024, 10, 64
@@ -337,14 +394,7 @@ def main(argv=None) -> int:
     kshape = (LM_BATCH, lm.n_kv_heads, LM_PROMPT, lm.hd)
     fq, fk, fv = (torch.randn(sh, generator=gen, device=dev).to(lm.dtype)
                   for sh in (fshape, kshape, kshape))
-    fo = ops.flash_attention(fq, fk, fv).float()
-    fp = ref.flash_attention(fq, fk, fv).float()
-    ferr = (fo - fp).abs()
-    bad = ferr > 2.0 ** -7 * fp.abs() + 1e-5
-    if bool(bad.any()):
-        raise AssertionError(f"flash_attention: {int(bad.sum())} outputs off"
-                             f" by more than a bf16 step (max "
-                             f"{float(ferr.max())})")
+    ferr = check_flash(torch, ops, ref, fq, fk, fv)
     n_el = 2 * fq.numel() + 2 * fk.numel()         # q, k, v and out
     b, o = bound_ms(n_el * fq.element_size(),
                     2 * LM_BATCH * lm.n_heads * LM_PROMPT ** 2 * lm.hd,
@@ -356,14 +406,32 @@ def main(argv=None) -> int:
         replaces="src/repro/kernels/flash_attn.py:66",
         shape=f"q[{','.join(map(str, fshape))}] "
               f"kv[{','.join(map(str, kshape))}] bf16 causal",
-        max_abs_err=float(ferr.max()),
+        max_abs_err=ferr,
         ms=cuda_ms(torch, lambda: ops.flash_attention(fq, fk, fv), 5),
         plain_ms=cuda_ms(torch, lambda: ref.flash_attention(fq, fk, fv), 2,
                          warmup=1),
         bound_ms=b, bound_by=o,
         library_ms=cuda_ms(torch, lambda: sdpa(fq, fk, fv, is_causal=True,
                                                enable_gqa=True), 10))
-    del fq, fk, fv, fo, fp, ferr, bad
+    # flash_attention_f32: the float32 check prefill's attention, same shape
+    fq, fk, fv = (t.float() for t in (fq, fk, fv))
+    ferr = check_flash(torch, ops, ref, fq, fk, fv)
+    b, o = bound_ms(n_el * fq.element_size(),
+                    2 * LM_BATCH * lm.n_heads * LM_PROMPT ** 2 * lm.hd)
+    kernels["flash_attention_f32"] = dict(
+        name="flash_attention_f32", route="cuda",
+        source="src/repro_torch/csrc/flash_attention_f32.cu",
+        replaces="src/repro/kernels/flash_attn.py:66",
+        shape=f"q[{','.join(map(str, fshape))}] "
+              f"kv[{','.join(map(str, kshape))}] f32 causal",
+        max_abs_err=ferr,
+        ms=cuda_ms(torch, lambda: ops.flash_attention(fq, fk, fv), 3),
+        plain_ms=cuda_ms(torch, lambda: ref.flash_attention(fq, fk, fv), 2,
+                         warmup=1),
+        bound_ms=b, bound_by=o,
+        library_ms=cuda_ms(torch, lambda: sdpa(fq, fk, fv, is_causal=True,
+                                               enable_gqa=True), 5))
+    del fq, fk, fv
     torch.cuda.empty_cache()
 
     # gather_dist_tile: one block of the prefilter group's scan
@@ -375,26 +443,20 @@ def main(argv=None) -> int:
     qp = torch.nn.functional.pad(q_all[pi], (0, dp - D)).contiguous()
     base = torch.full((Bp,), (N // block) // 2, dtype=torch.int32,
                       device=dev)
-    kt = ops.gather_dist_tile(xpad, base, qp, tile=block)
-    pt = ref.gather_dist_tile(xpad, base, qp, tile=block)
-    rows = xpad[int(base[0]) * block:(int(base[0]) + 1) * block]
-    scale = (torch.sum(rows * rows, -1)[None, :]
-             + torch.sum(qp * qp, -1)[:, None])
-    err = check_d2(torch, "gather_dist_tile", kt, pt, scale)
-    bit_exact = torch.equal(kt, pt)
+    err, bit_exact = check_scan_tile(torch, ops, ref, xpad, base, qp, block)
     # lanes with differing bases take the per-lane path
     base2 = torch.randint(0, xpad.shape[0] // block, (64,), generator=gen,
                           device=dev, dtype=torch.int32)
-    k2 = ops.gather_dist_tile(xpad, base2, qp[:64].contiguous(), tile=block)
-    p2 = ref.gather_dist_tile(xpad, base2, qp[:64].contiguous(), tile=block)
-    bit_exact &= torch.equal(k2, p2)
+    err2, exact2 = check_scan_tile(torch, ops, ref, xpad, base2,
+                                   qp[:64].contiguous(), block)
+    err, bit_exact = max(err, err2), bit_exact and exact2
     log(f"[kernels] gather_dist_tile bit-exact with its plain version: "
         f"{bit_exact}")
     if not bit_exact:
         raise AssertionError("gather_dist_tile is not bit-exact")
     b, o = bound_ms((block * dp + Bp * dp + Bp + Bp * block) * 4,
                     2 * Bp * block * dp)
-    x_tile = rows.contiguous()
+    x_tile = xpad[int(base[0]) * block:(int(base[0]) + 1) * block]
     kernels["gather_dist_tile"] = dict(
         name="gather_dist_tile", route="cuda",
         source="src/repro_torch/csrc/gather_dist_tile.cu",
@@ -478,7 +540,7 @@ def main(argv=None) -> int:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never ran on the main path")
     for name, n_launch in launches.items():   # gather_dist, l2dist: on
-        if name != "flash_attention":         # no path, their 0 is kept
+        if not name.startswith("flash"):      # no path, their 0 is kept
             kernels[name]["launches"] = n_launch
     cold = {r: (n, s) for r, (n, s) in timings.items()}
     timings.clear()
@@ -603,7 +665,16 @@ def main(argv=None) -> int:
     # float32: the kernel against the plain attention, sum order only
     lm32 = dataclasses.replace(lm, dtype=torch.float32)
     c32 = TT.init_cache(lm32, LM_BATCH, LM_PROMPT, dev)
+    ops.reset_launches()
     l32, _ = TT.prefill(lm32, params, toks, c32)
+    torch.cuda.synchronize()
+    l32_launches = (ops.LAUNCHES["flash_attention_f32"],
+                    ops.LAUNCHES["flash_attention"])
+    log(f"[slice C] float32 prefill: flash_attention_f32 launched "
+        f"{l32_launches[0]} times, flash_attention {l32_launches[1]}")
+    if l32_launches != (lm.n_layers, 0):
+        raise AssertionError(f"float32 prefill launched {l32_launches}, not "
+                             f"({lm.n_layers}, 0)")
     l32p, _ = TT.prefill(lm32, params, toks, c32, impl=ref)
     del c32
     err32 = biggest(l32 - l32p)
@@ -627,11 +698,15 @@ def main(argv=None) -> int:
     t_first = time.perf_counter() - t0
     lc = dict(ops.LAUNCHES)
     log(f"[slice C] launches in the prefill: {lc}")
-    if lc["flash_attention"] != lm.n_layers:
+    if lc["flash_attention"] != lm.n_layers or lc["flash_attention_f32"]:
         raise AssertionError(f"prefill launched flash_attention "
                              f"{lc['flash_attention']} times, not "
-                             f"{lm.n_layers}")
+                             f"{lm.n_layers}, and flash_attention_f32 "
+                             f"{lc['flash_attention_f32']} times, not 0")
+    # each kernel's count from the prefill that runs it: the bf16 serving
+    # prefill above, the float32 check prefill for flash_attention_f32
     kernels["flash_attention"]["launches"] = lc["flash_attention"]
+    kernels["flash_attention_f32"]["launches"] = l32_launches[0]
     lp, _ = TT.prefill(lm, params, toks, cache, impl=ref)
     # bf16's own error: the plain bf16 prefill against float32
     noise = biggest(lp.float() - l32p)
@@ -713,7 +788,7 @@ def main(argv=None) -> int:
         prefill_tokens_per_s=n_tok / t_prefill, decode_ms_per_step=t_decode
         * 1e3, decode_median_ms=float(np.median(step_ms)),
         decode_first_ms=t_step0 * 1e3, decode_step_ms=step_ms, peak_bytes=peak,
-        launches=lc, f32_err=err32, bf16_err=err, bf16_vs_f32=noise,
+        launches=lc, f32_launches=l32_launches[0], f32_err=err32, bf16_err=err, bf16_vs_f32=noise,
         decode_vs_prefill=derr)
     del params, logits, lp, l32, l32p, l1
     torch.cuda.empty_cache()

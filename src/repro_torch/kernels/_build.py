@@ -24,7 +24,7 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("fused_expand", "gather_dist_tile", "bitset_dist", "gather_dist",
-           "l2dist", "flash_attention")
+           "l2dist", "flash_attention", "flash_attention_f32")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -36,7 +36,9 @@ SIGNATURES = {
     "gather_dist": ("gather_dist", [_P] * 4 + [_I] * 6 + [_P]),
     "l2dist": ("l2dist", [_P] * 3 + [_I] * 5 + [_P]),
     "flash_attention": ("flash_attention",
-                        [_P] * 4 + [_I] * 8 + [_F, _I, _P]),
+                        [_P] * 4 + [_I] * 7 + [_F, _I, _P]),
+    "flash_attention_f32": ("flash_attention_f32",
+                            [_P] * 4 + [_I] * 8 + [_F, _I, _P]),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -109,3 +111,14 @@ def library(name: str) -> ctypes.CDLL:
 def entry(name: str):
     """The C entry point of kernel ``name`` with its argtypes set."""
     return getattr(library(name), SIGNATURES[name][0])
+
+
+def sass_count(name: str, opcode: str) -> int:
+    """How many instructions of ``opcode`` (e.g. "HGMMA") the built library
+    of kernel ``name`` holds, from ``cuobjdump -sass``."""
+    path = build_all([name])[name]
+    tool = Path(nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(path)], check=True,
+                          capture_output=True, text=True).stdout
+    return sum(line.split("*/", 1)[-1].lstrip().startswith(opcode)
+               for line in sass.splitlines())

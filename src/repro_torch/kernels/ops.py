@@ -98,8 +98,9 @@ def gather_dist_tile(xb: torch.Tensor, base: torch.Tensor, q: torch.Tensor,
     """Contiguous-tile fused gather + distance: lane b scores rows
     ``[base[b]*tile, (base[b]+1)*tile)`` of xb against q[b] -> f32
     [B, tile], squared L2 clamped at 0. xb f32 [N_pad, d_pad] with N_pad a
-    multiple of ``tile``; ``base`` int32 [B] is clamped into range. Padded
-    rows score against the zero vector, so callers mask them.
+    multiple of ``tile`` and, on the card, d_pad a multiple of 8; ``base``
+    int32 [B] is clamped into range. Padded rows score against the zero
+    vector, so callers mask them.
     """
     if not _on_card(xb, base, q):
         return ref.gather_dist_tile(xb, base, q, tile=tile)
@@ -111,6 +112,10 @@ def gather_dist_tile(xb: torch.Tensor, base: torch.Tensor, q: torch.Tensor,
     _expect(xb, "xb", torch.float32, (n_rows, dp))
     _expect(base, "base", torch.int32, (B,))
     _expect(q, "q", torch.float32, (B, dp))
+    if dp % 8 or xb.data_ptr() % 16 or q.data_ptr() % 16:
+        raise ValueError("gather_dist_tile: the kernel's 16-byte copies need "
+                         f"dp a multiple of 8 (got {dp}) and 16-byte aligned "
+                         "xb and q")
     out = torch.empty((B, tile), dtype=torch.float32, device=xb.device)
     if out.numel():
         _launch("gather_dist_tile", xb, base, q, out, B, tile, dp, n_rows)
@@ -194,12 +199,18 @@ def l2dist(q: torch.Tensor, xb: torch.Tensor) -> torch.Tensor:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
-    """Online-softmax attention in float32 (see ``ref.flash_attention``).
+    """Online-softmax attention with f32 accumulation (see
+    ``ref.flash_attention``).
 
     q [B, H, Tq, D], k/v [B, Hkv, Tk, D], all f32 or all bf16, D <= 256
     -> [B, H, Tq, D] in q's dtype. Query head h reads kv head h // (H/Hkv).
     Causal attention (mask row >= col) needs Tq == Tk and raises otherwise.
-    The kernel masks ragged Tq, Tk and D itself, so nothing is padded.
+    The kernels mask ragged Tq, Tk and D themselves, so nothing is padded.
+
+    Two kernels, picked by dtype and width: bf16 with D a multiple of 8 (and
+    16-byte aligned tensors) runs on the tensor cores (``flash_attention``,
+    counted under that name); float32, and bf16 of another width, runs the
+    FP32 SIMT kernel (``flash_attention_f32``).
     """
     if not _on_card(q, k, v):
         return ref.flash_attention(q, k, v, causal=causal)
@@ -210,17 +221,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if H % Hkv:
         raise ValueError(f"{H} query heads are not a multiple of {Hkv}")
     if D > 256:
-        raise ValueError(f"head_dim {D} > 256, the kernel's widest tile")
-    if B * H > 65535:
-        raise ValueError(f"B * H = {B * H} exceeds the grid's y extent")
+        raise ValueError(f"head_dim {D} > 256, the kernels' widest tile")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q: dtype {q.dtype}, expected float32 or bfloat16")
     _expect(q, "q", q.dtype, (B, H, Tq, D))
     _expect(k, "k", q.dtype, (B, Hkv, Tk, D))
     _expect(v, "v", q.dtype, (B, Hkv, Tk, D))
     out = torch.empty_like(q)
-    if out.numel():
+    if not out.numel():
+        return out
+    scale = 1.0 / math.sqrt(D)
+    if q.dtype == torch.bfloat16 and D % 8 == 0:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name}: the tensor-core kernel's TMA "
+                                 "copies need a 16-byte aligned tensor")
         _launch("flash_attention", q, k, v, out, B, H, Hkv, Tq, Tk, D,
-                int(causal), int(q.dtype == torch.bfloat16),
-                1.0 / math.sqrt(D))
+                int(causal), scale)
+    else:
+        if B * H > 65535:
+            raise ValueError(f"B * H = {B * H} exceeds the grid's y extent")
+        _launch("flash_attention_f32", q, k, v, out, B, H, Hkv, Tq, Tk, D,
+                int(causal), int(q.dtype == torch.bfloat16), scale)
     return out

@@ -10,9 +10,11 @@ attr words, the scan tile and popcounts are bit-exact. gather_dist agrees
 within 1e-5 of its value (a sum of squares). Attention in float32 agrees
 within 1e-4 (another order of the float32 sums, amplified by exp); in bf16
 both outputs are float32 values rounded once, so they may differ by one
-bf16 step, 2^-7 of the value. The reduced LM's prefill with the kernel
-agrees with the plain attention within 1e-4 (float32) and 2^-6 (bf16) of
-its largest logit, as ``test_torch_lm.py`` states.
+bf16 step, 2^-7 of the value, plus 1e-5: the tensor-core kernel rounds p
+to bf16 as p_hi + p_lo, about 2^-17 of p (``test_torch_kernels.py``).
+The reduced LM's prefill with the kernel agrees with the plain attention
+within 1e-4 (float32) and 2^-6 (bf16) of its largest logit, as
+``test_torch_lm.py`` states.
 """
 import dataclasses
 
@@ -66,15 +68,24 @@ def test_cuda_fused_expand_matches_plain(sm90):
 
 
 @pytest.mark.gpu
-def test_cuda_gather_dist_tile_bit_exact(sm90):
+@pytest.mark.parametrize("B,dp,tile", [
+    (37, 104, 4096),      # B not a multiple of the 64-lane block
+    (1, 104, 4096),
+    (130, 8, 4096),
+    (70, 136, 4096),
+    (37, 104, 200),       # a tile that is no multiple of the 128-row block
+])
+def test_cuda_gather_dist_tile_bit_exact(sm90, B, dp, tile):
     rng = np.random.default_rng(5)
-    xb = _t(rng.normal(size=(4096 * 3, 104)).astype(np.float32)).to(sm90)
-    q = _t(rng.normal(size=(37, 104)).astype(np.float32)).to(sm90)
-    for base in (torch.full((37,), 1, dtype=torch.int32),
-                 _t(rng.integers(0, 3, 37).astype(np.int32))):
+    xb = _t(rng.normal(size=(tile * 3, dp)).astype(np.float32)).to(sm90)
+    q = _t(rng.normal(size=(B, dp)).astype(np.float32)).to(sm90)
+    for base in (torch.full((B,), 1, dtype=torch.int32),
+                 _t(rng.integers(0, 3, B).astype(np.int32))):
         base = base.to(sm90)
-        assert torch.equal(ops.gather_dist_tile(xb, base, q, tile=4096),
-                           ref.gather_dist_tile(xb, base, q, tile=4096))
+        before = ops.LAUNCHES["gather_dist_tile"]
+        got = ops.gather_dist_tile(xb, base, q, tile=tile)
+        assert ops.LAUNCHES["gather_dist_tile"] == before + 1
+        assert torch.equal(got, ref.gather_dist_tile(xb, base, q, tile=tile))
 
 
 @pytest.mark.gpu
@@ -118,12 +129,40 @@ def test_cuda_l2dist_matches_plain(sm90, dtype, B, N, d):
     assert bool(((got - want).abs() <= 1e-5 * scale).all())
 
 
+def _flash_kernel(dtype, D):
+    """The launch counter that a call of ops.flash_attention moves."""
+    if dtype == torch.bfloat16 and D % 8 == 0:
+        return "flash_attention"          # the tensor cores
+    return "flash_attention_f32"          # FP32 SIMT
+
+
+def _check_flash(q, k, v, causal):
+    dtype, D = q.dtype, q.shape[-1]
+    name = _flash_kernel(dtype, D)
+    before = dict(ops.LAUNCHES)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    moved = {n: ops.LAUNCHES[n] - before[n] for n in before}
+    assert moved == {n: int(n == name) for n in before}
+    assert got.dtype == dtype and got.shape == q.shape
+    want = ref.flash_attention(q, k, v, causal=causal).float()
+    err = (got.float() - want).abs()
+    if dtype == torch.float32:
+        assert bool((err <= 1e-4 * want.abs() + 1e-4).all())
+    else:
+        assert bool((err <= 2.0 ** -7 * want.abs() + 1e-5).all())
+    return got
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [12, 64, 128, 256])
 @pytest.mark.parametrize("B,H,Hkv,Tq,Tk,causal", [
     (2, 4, 2, 300, 300, True),      # GQA, ragged T
     (1, 4, 1, 70, 200, False),      # MQA, cross-length, bidirectional
+    (1, 2, 1, 1, 1, True),          # one token
+    (2, 2, 2, 17, 17, True),        # T shorter than one tile
+    (1, 4, 4, 63, 63, True),
+    (1, 2, 1, 256, 256, True),      # whole tiles
 ])
 def test_cuda_flash_attention_matches_plain(sm90, dtype, D, B, H, Hkv, Tq,
                                             Tk, causal):
@@ -132,16 +171,24 @@ def test_cuda_flash_attention_matches_plain(sm90, dtype, D, B, H, Hkv, Tq,
     q = torch.randn((B, H, Tq, D), generator=g, device=sm90).to(dtype)
     k = torch.randn((B, Hkv, Tk, D), generator=g, device=sm90).to(dtype)
     v = torch.randn((B, Hkv, Tk, D), generator=g, device=sm90).to(dtype)
-    before = ops.LAUNCHES["flash_attention"]
-    got = ops.flash_attention(q, k, v, causal=causal)
-    assert ops.LAUNCHES["flash_attention"] == before + 1
-    assert got.dtype == dtype and got.shape == q.shape
-    want = ref.flash_attention(q, k, v, causal=causal).float()
-    err = (got.float() - want).abs()
-    if dtype == torch.float32:
-        assert bool((err <= 1e-4 * want.abs() + 1e-4).all())
-    else:
-        assert bool((err <= 2.0 ** -7 * want.abs() + 1e-5).all())
+    _check_flash(q, k, v, causal)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_cuda_flash_attention_non_finite_row_is_zero(sm90, dtype, D):
+    """A query row whose every score is not finite (q = inf): the guards
+    give it p = 0 everywhere, l = 0 and an output of 0, as in the plain
+    version, and leave the other rows alone."""
+    g = torch.Generator(device=sm90)
+    g.manual_seed(1)
+    q = torch.randn((1, 2, 150, D), generator=g, device=sm90).to(dtype)
+    k = torch.randn((1, 1, 150, D), generator=g, device=sm90).to(dtype)
+    v = torch.randn((1, 1, 150, D), generator=g, device=sm90).to(dtype)
+    q[0, 1, 77] = float("inf")
+    got = _check_flash(q, k, v, True)
+    assert bool((got[0, 1, 77] == 0).all())
 
 
 @pytest.mark.gpu
@@ -155,7 +202,7 @@ def test_cuda_reduced_prefill_kernel_matches_plain(sm90, dtype):
     toks = torch.randint(0, cfg.vocab, (2, 100), generator=g, device=sm90)
     ops.reset_launches()
     got, _ = TT.prefill(cfg, params, toks, TT.init_cache(cfg, 2, 104, sm90))
-    assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
+    assert ops.LAUNCHES[_flash_kernel(dtype, cfg.hd)] == cfg.n_layers
     want, _ = TT.prefill(cfg, params, toks, TT.init_cache(cfg, 2, 104, sm90),
                          impl=ref)
     tol = 1e-4 if dtype == torch.float32 else 2.0 ** -6

@@ -12,6 +12,8 @@ values that agree to about 1e-6, may differ by one bf16 rounding step,
 2^-7 of the value. The CUDA kernels are held against their plain versions
 in ``test_torch_cuda.py``.
 """
+import math
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -214,3 +216,57 @@ def test_flash_attention_causal_needs_equal_lengths():
     with pytest.raises(ValueError, match="Tq == Tk"):
         ref.flash_attention(q, k, k, causal=True)
     assert ops.flash_attention(q, k, k, causal=False).shape == q.shape
+
+
+def _flash_tensor_core_arithmetic(q, k, v, *, split: bool):
+    """The tensor-core kernel's arithmetic (``csrc/flash_attention.cu``) in
+    plain torch, causal: S = Q K^T from bf16 values in float32, the 1/sqrt(D)
+    scale after the product, the reference's online softmax over blocks of
+    128 keys, and P.V with P rounded to bf16, as p_hi alone (``split``
+    False) or as p_hi + p_lo with p_lo = bf16(p - p_hi) (True)."""
+    B, H, T, D = q.shape
+    Hkv = k.shape[1]
+    G = H // Hkv
+    qf = q.float().reshape(B, Hkv, G * T, D)
+    rows = torch.arange(T).repeat(G)[:, None]
+    m = torch.full((B, Hkv, G * T, 1), -math.inf)
+    l = torch.zeros((B, Hkv, G * T, 1))
+    acc = torch.zeros((B, Hkv, G * T, D))
+    for k0 in range(0, T, 128):
+        kb, vb = k[:, :, k0:k0 + 128].float(), v[:, :, k0:k0 + 128].float()
+        s = (qf @ kb.transpose(-1, -2)) * (1.0 / math.sqrt(D))
+        cols = torch.arange(k0, k0 + kb.shape[2])
+        s = torch.where(rows >= cols[None, :], s, -math.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.where(torch.isfinite(s), torch.exp(s - m_safe), 0.0)
+        corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        p_hi = p.bfloat16().float()
+        pv = p_hi @ vb
+        if split:
+            pv = pv + (p - p_hi).bfloat16().float() @ vb
+        acc = acc * corr + pv
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).reshape(B, H, T, D).bfloat16()
+
+
+def test_flash_attention_split_p_keeps_the_bf16_gate():
+    """Why the tensor-core kernel splits P. With bf16 inputs (GQA, 256
+    tokens, D = 64) against the JAX kernel in interpret mode, the gate that
+    the card's comparison applies, |out - ref| <= 2^-7 |ref| + 1e-5, holds
+    for p_hi + p_lo everywhere. With P rounded once to bf16, as SDPA does,
+    6502 of the 65536 outputs fall outside it (the worst by 0.00197): an
+    error of 2^-9 of p moves outputs near zero by more than 1e-5."""
+    rng = np.random.default_rng(0)
+    q, k, v = (_bf16_np(rng.normal(size=s)) for s in
+               ((1, 4, 256, 64), (1, 2, 256, 64), (1, 2, 256, 64)))
+    want = np.asarray(rflash(*(jnp.asarray(a, jnp.bfloat16)
+                               for a in (q, k, v)), interpret=True),
+                      np.float32)
+    tol = 2.0 ** -7 * np.abs(want) + 1e-5
+    tq, tk, tv = (_t(a).to(torch.bfloat16) for a in (q, k, v))
+    split = _flash_tensor_core_arithmetic(tq, tk, tv, split=True)
+    assert np.all(np.abs(split.float().numpy() - want) <= tol)
+    single = _flash_tensor_core_arithmetic(tq, tk, tv, split=False)
+    assert np.sum(np.abs(single.float().numpy() - want) > tol) > 0.05 * want.size
