@@ -26,7 +26,14 @@ result line:
    about 2^-17 of p); in float32 (the SIMT kernel) 1e-4 |plain| + 1e-4.
    gather_dist and l2dist have no caller on a path; they are held at slice
    A's graph shapes and at the prefilter scan's and kernels_bench's widths;
-   the float32 attention kernel at slice C's shape in float32.
+   the float32 attention kernel at slice C's shape in float32. Edge shapes:
+   bitset_dist with N % 4 != 0 at W = 1 and 33, fused_expand at an odd row
+   width (103 words) with ids out of range and NaN-like attr words.
+   fused_expand is timed with cold rows (COLD_SETS id batches in turn, more
+   rows than the L2 holds), as the beam finds them; its warm time is
+   printed beside it. bitset_dist's operations bound counts popcounts at
+   the card's popcount rate (SMs x 16 a clock x nvidia-smi's
+   clocks.max.sm), not at the FP32 rate.
 4. Slice A, the main path at MSTuring's published width: msturing_subset
    (d = 100, 30 Bernoulli(1/2) subset attributes, N = 1,000,000),
    ``JAGIndex.build`` on the card (degree 128, ls_build 96, cand_pool
@@ -68,6 +75,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -77,6 +85,11 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM FP32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
+POPC_PER_CLOCK = 16            # popcounts a clock an SM, compute capability
+                               # 9.0 (CUDA C++ Programming Guide, throughput
+                               # of native arithmetic instructions)
+L2_BYTES = 50e6                # H100 L2 cache
+COLD_SETS = 8                  # id batches a cold fused_expand timing cycles
 DTOL = 1e-5                    # d2 tolerance, relative to |x|^2 + |q|^2
 RECALL_MIN = 0.80
 MIN_DEGREE_SHARE = 1 / 8       # a built row below R / 8 edges is a fault
@@ -117,6 +130,26 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def cold_ms(torch, fns, iters: int) -> float:
+    """``cuda_ms`` over calls that take ``fns`` in turn. Their inputs
+    together exceed the L2, so each call finds its own evicted, as a caller
+    that reads new rows at every step does."""
+    turn = itertools.cycle(fns)
+    return cuda_ms(torch, lambda: next(turn)(), iters)
+
+
+def popc_ops_per_s(torch) -> tuple:
+    """The card's popcount rate: SMs x POPC_PER_CLOCK x the SM's maximum
+    clock as nvidia-smi prints it (``clocks.max.sm``); also that line."""
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * POPC_PER_CLOCK * float(clock.split()[0]) * 1e6, \
+        f"{sms} SMs x {POPC_PER_CLOCK} a clock x clocks.max.sm {clock}"
+
+
 def bound_ms(n_bytes: float, n_ops: float,
              ops_per_s: float = FP32_OPS_PER_S) -> tuple:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -142,6 +175,27 @@ def check_exact(torch, name, got, want):
         raise AssertionError(f"{name}: {n} entries differ from the plain "
                              f"version (max {err})")
     return err
+
+
+def check_fused_expand(torch, ops, ref, packed, ids, q, qn, d) -> float:
+    """fused_expand against its plain version: d2 within DTOL of |x|^2 +
+    |q|^2, the attr words bit for bit; the max d2 error."""
+    kd2, kw = ops.fused_expand(packed, ids, q, qn, d=d)
+    pd2, pw = ref.fused_expand(packed, ids, q, qn, d=d)
+    rows = ids.long().clamp(0, packed.shape[0] - 1)
+    err = check_d2(torch, "fused_expand", kd2, pd2,
+                   packed[rows, d] + qn[:, None])
+    check_exact(torch, "fused_expand words", kw.view(torch.int32),
+                pw.contiguous().view(torch.int32))
+    return err
+
+
+def check_bitset(torch, ops, ref, a, b) -> float:
+    """bitset_dist against its plain version, both ops, exact."""
+    return max(check_exact(
+        torch, f"bitset_dist[{op}] a{tuple(a.shape)} b{tuple(b.shape)}",
+        ops.bitset_dist(a, b, op=op), ref.bitset_dist(a, b, op=op))
+        for op in ("deficit", "xor"))
 
 
 def check_flash(torch, ops, ref, q, k, v) -> float:
@@ -303,7 +357,13 @@ def main(argv=None) -> int:
             raise AssertionError(f"slice A's plan has no {r} queries")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
+    gen_edge = torch.Generator(device=dev)   # edge shapes and cold batches
+    gen_edge.manual_seed(1)
     kernels = {}
+
+    def words32(shape):
+        return torch.randint(0, 2 ** 32, shape, generator=gen_edge,
+                             device=dev, dtype=torch.int64).to(torch.int32)
 
     # fused_expand: the graph group's expansion of C = R + EX neighbours
     # the overflow re-prune takes 2 rows per inserted point and batch, the
@@ -318,13 +378,39 @@ def main(argv=None) -> int:
     qgn = torch.sum(qg * qg, dim=-1)
     ids = torch.randint(0, N, (Bg, C), generator=gen, device=dev,
                         dtype=torch.int32)
-    kd2, kw = ops.fused_expand(lay.packed, ids, qg, qgn, d=D)
-    pd2, pw = ref.fused_expand(lay.packed, ids, qg, qgn, d=D)
+    err = check_fused_expand(torch, ops, ref, lay.packed, ids, qg, qgn, D)
     scale = lay.packed[ids.long(), D] + qgn[:, None]
-    err = check_d2(torch, "fused_expand", kd2, pd2, scale)
-    check_exact(torch, "fused_expand words", kw.view(torch.int32),
-                pw.contiguous().view(torch.int32))
     A = lay.n_attr_words
+    # an odd row width (A = 2: 103 words, read a word at a time), ids out of
+    # range and attr words that look like NaNs
+    n_odd = min(N, 100_000)
+    odd_words = words32((n_odd, 2))
+    odd_words[0, 0] = 0x7FC00001          # 0xFFFFFFFF and 0x80000000 next
+    odd_words[1, 0], odd_words[2, 1] = -1, -2 ** 31
+    odd = torch.cat([lay.packed[:n_odd, :D + 1],
+                     odd_words.view(torch.float32)], dim=1)
+    ids_odd = torch.randint(-1, n_odd + 1, (Bg, C), generator=gen_edge,
+                            device=dev, dtype=torch.int32)
+    err = max(err, check_fused_expand(torch, ops, ref, odd, ids_odd, qg, qgn,
+                                      D))
+    del odd, odd_words, ids_odd
+    # cold rows: the beam reads new rows at every expansion, so the timed
+    # calls take COLD_SETS id batches in turn; the warm figure (one batch,
+    # its rows left in the L2) is printed beside it
+    row_bytes = Bg * C * (D + 1 + A) * 4
+    id_sets = [ids] + [torch.randint(0, N, (Bg, C), generator=gen_edge,
+                                     device=dev, dtype=torch.int32)
+                       for _ in range(COLD_SETS - 1)]
+    fe_cold = cold_ms(torch, [lambda s=s: ops.fused_expand(lay.packed, s, qg,
+                                                           qgn, d=D)
+                              for s in id_sets], 50)
+    fe_warm = cuda_ms(torch, lambda: ops.fused_expand(lay.packed, ids, qg, qgn,
+                                                      d=D), 50)
+    log(f"[kernels] fused_expand: {fe_cold:.6f} ms with cold rows "
+        f"({COLD_SETS} id batches in turn, {COLD_SETS * row_bytes / 1e6:.1f} "
+        f"MB of rows against the {L2_BYTES / 1e6:.0f} MB L2), {fe_warm:.6f} "
+        f"ms warm (one batch)")
+    del id_sets
     b, o = bound_ms(Bg * C * ((D + 1 + A) * 4 + 4 + 4 + A * 4)
                     + Bg * (D + 1) * 4, 2 * Bg * C * D)
     kernels["fused_expand"] = dict(
@@ -332,8 +418,7 @@ def main(argv=None) -> int:
         source="src/repro_torch/csrc/fused_expand.cu",
         replaces="src/repro/kernels/fused_expand.py:49",
         shape=f"packed[{N},{D + 1 + A}] ids[{Bg},{C}]", max_abs_err=err,
-        ms=cuda_ms(torch, lambda: ops.fused_expand(lay.packed, ids, qg, qgn,
-                                                   d=D), 50),
+        ms=fe_cold, warm_ms=fe_warm,
         plain_ms=cuda_ms(torch, lambda: ref.fused_expand(
             lay.packed, ids, qg, qgn, d=D), 10),
         bound_ms=b, bound_by=o, library_ms=None)
@@ -474,11 +559,17 @@ def main(argv=None) -> int:
     fbits = ds.filt.data["bits"][pi].contiguous()
     abits = ds.attr.data["bits"][:block].contiguous()
     W = fbits.shape[1]
-    err = max(check_exact(torch, f"bitset_dist[{op}]",
-                          ops.bitset_dist(fbits, abits, op=op),
-                          ref.bitset_dist(fbits, abits, op=op))
-              for op in ("deficit", "xor"))
-    b, o = bound_ms((Bp * W + block * W + Bp * block) * 4, Bp * block * W)
+    err = check_bitset(torch, ops, ref, fbits, abits)
+    # rows of the output that start off a 16-byte boundary (N % 4 != 0)
+    for w_edge in (1, 33):
+        err = max(err, check_bitset(torch, ops, ref, words32((Bp, w_edge)),
+                                    words32((block - 3, w_edge))))
+    # popcounts run on their own pipe, at an eighth of the FP32 rate
+    popc_rate, popc_note = popc_ops_per_s(torch)
+    log(f"[kernels] popcount rate {popc_rate:.4g} /s: {popc_note}")
+    report["popc_ops_per_s"] = dict(rate=popc_rate, source=popc_note)
+    b, o = bound_ms((Bp * W + block * W + Bp * block) * 4, Bp * block * W,
+                    popc_rate)
     kernels["bitset_dist"] = dict(
         name="bitset_dist", route="cuda",
         source="src/repro_torch/csrc/bitset_dist.cu",
@@ -496,12 +587,15 @@ def main(argv=None) -> int:
     check_exact(torch, "bitset_dist[deficit, W=1024]",
                 ops.subset_deficit(sat_w, hot), ref.subset_deficit(sat_w, hot))
     bool_ms = cuda_ms(torch, lambda: ops.subset_deficit(sat_w, hot), 10)
+    bool_plain = cuda_ms(torch, lambda: ref.subset_deficit(sat_w, hot), 3,
+                         warmup=1)
     bb, bo = bound_ms((128 * 1024 + block * 1024 + 128 * block) * 4,
-                      128 * block * 1024)
+                      128 * block * 1024, popc_rate)
     log(f"[kernels] bitset_dist deficit a[128,1024] b[{block},1024]: "
-        f"{bool_ms:.4f} ms (bound {bb:.4f} ms by {bo})")
-    report["bitset_dist_boolean_width"] = dict(ms=bool_ms, bound_ms=bb,
-                                               bound_by=bo)
+        f"{bool_ms:.4f} ms (plain {bool_plain:.4f} ms, bound {bb:.4f} ms by "
+        f"{bo})")
+    report["bitset_dist_boolean_width"] = dict(
+        ms=bool_ms, plain_ms=bool_plain, bound_ms=bb, bound_by=bo)
     for kr in kernels.values():
         log(f"[kernels] {kr['name']} {kr['shape']}: max_abs_err "
             f"{kr['max_abs_err']:.3g}, {kr['ms']:.4f} ms (plain "

@@ -10,52 +10,135 @@
 //
 // Bound on the H100: bytes. Each candidate pulls one row of (d+1+A)*4
 // bytes from HBM (about B*C*(d+1+A)*4 in all) and does 2*d flops on it,
-// far below the 67 TFLOP/s FP32 line. The design keeps the row read down
-// to one pass: one warp per candidate row makes coalesced 4-byte loads
-// along the row (the row stride (d+1+A)*4 is not 16-byte aligned in
-// general, so no float4), reduces the dot with shuffles, and lane 0 writes
-// d2; the query stays in shared memory for every row of its lane. The
-// attr words are copied through a uint32_t pointer, never through float
-// registers, so a packed subset bitmap that happens to look like a NaN is
-// not canonicalised.
+// far below the 67 TFLOP/s FP32 line. The rows are scattered, so the time
+// goes to waiting on loads unless as many rows as possible are in flight
+// at once, each thread in one short chain (id, then row, then sum):
+// - A group of 16 threads (half a warp) serves one candidate row; a block
+//   of 256 threads serves 16 consecutive candidates of one query lane, and
+//   the grid is (B, ceil(C / 16)). At 32 to 48 registers a thread, five
+//   or six blocks fit an SM, so 10,000 to 13,000 of the main path's
+//   45,360 rows are in flight at once, each group waiting on one row.
+// - The group reads its id once (the warp's two ids are adjacent), loads
+//   q for the columns its lanes read into registers (no shared copy, no
+//   barrier), then issues all of the row's loads before it uses any.
+// - The load width V (1, 2 or 4 words) is the widest that divides the row
+//   stride d+1+A and the base's alignment: 102 words (d = 100, A = 1) load
+//   as 8-byte pairs, an odd width as single words. A row is read in passes
+//   of kChunk = 128 words (one pass up to 128 words; wider rows take
+//   several, with q reloaded per pass).
+// - The dot is reduced within the group by four shuffles; the lane that
+//   holds the norm writes d2, the lanes that hold attr words write them.
+//   The two groups of a warp hold consecutive candidates, so d2 and the
+//   words are written as contiguous runs.
+// - Rows are read once per step, so the loads carry the streaming
+//   (evict-first) hint. Everything is loaded as 32-bit integers: the attr
+//   words never pass through a float operation (a packed bitmap may look
+//   like a NaN); the vector and the norm are reinterpreted as floats.
+// On the card, one block per query lane holding all C candidates, each
+// group taking several rows in turn, ran slower: its groups waited for
+// two or three rows one after another (PERF.md).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarps = 8;  // candidate rows in flight per block
+constexpr int kThreads = 256;
+constexpr int kLanes = 16;                    // threads that share a row
+constexpr int kGroups = kThreads / kLanes;    // candidates per block
+constexpr int kChunk = 128;                   // words of a row per pass
 
-__global__ void __launch_bounds__(kWarps * 32)
-fused_expand_kernel(const float* __restrict__ packed,
+template <int V>
+__device__ __forceinline__ void load_words(const uint32_t* p,
+                                           uint32_t (&w)[V]) {
+  if constexpr (V == 4) {
+    const uint4 t = __ldcs(reinterpret_cast<const uint4*>(p));
+    w[0] = t.x; w[1] = t.y; w[2] = t.z; w[3] = t.w;
+  } else if constexpr (V == 2) {
+    const uint2 t = __ldcs(reinterpret_cast<const uint2*>(p));
+    w[0] = t.x; w[1] = t.y;
+  } else {
+    w[0] = __ldcs(p);
+  }
+}
+
+template <int V, bool kWide>
+__global__ void __launch_bounds__(kThreads)
+fused_expand_kernel(const uint32_t* __restrict__ packed,
                     const int* __restrict__ ids,
                     const float* __restrict__ q,
                     const float* __restrict__ q_norm,
                     float* __restrict__ d2,
                     uint32_t* __restrict__ words,
                     int C, int N, int d, int A) {
-  extern __shared__ float qs[];  // [d], this block's query
+  constexpr int K = kChunk / (kLanes * V);    // vectors a lane reads a pass
   const int b = blockIdx.x;
-  for (int j = threadIdx.x; j < d; j += blockDim.x) {
-    qs[j] = q[(size_t)b * d + j];
-  }
-  __syncthreads();
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int c = blockIdx.y * kWarps + warp;
-  if (c >= C) return;
+  const int c = blockIdx.y * kGroups + threadIdx.x / kLanes;
+  if (c >= C) return;                         // the whole group leaves
+  const int l = threadIdx.x % kLanes;
+  const unsigned mask = 0xFFFFu << (threadIdx.x & 16);  // the group's lanes
+  const int rw = d + 1 + A;
   const size_t o = (size_t)b * C + c;
-  int id = ids[o];
-  id = min(max(id, 0), N - 1);
-  const size_t row_w = (size_t)d + 1 + A;
-  const float* row = packed + (size_t)id * row_w;
-  float acc = 0.0f;
-  for (int j = lane; j < d; j += 32) acc = fmaf(row[j], qs[j], acc);
-  for (int off = 16; off > 0; off >>= 1) {
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  const float* qb = q + (size_t)b * d;
+  const uint32_t* row = packed + (size_t)min(max(ids[o], 0), N - 1) * rw;
+  // the lane that holds column d (the norm) writes d2
+  const int l_norm = ((d % kChunk) / V) % kLanes;
+  const int passes = kWide ? (rw + kChunk - 1) / kChunk : 1;
+  float dot = 0.0f, nrm = 0.0f;
+  for (int p = 0; p < passes; ++p) {
+    const int j0 = p * kChunk;
+    float qr[K][V];   // q at the columns this lane reads in the pass
+    uint32_t x[K][V];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const int j = j0 + (l + kLanes * k) * V + v;
+        qr[k][v] = j < d ? qb[j] : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int j = j0 + (l + kLanes * k) * V;
+      if (j < rw) {
+        load_words<V>(row + j, x[k]);
+      } else {
+#pragma unroll
+        for (int v = 0; v < V; ++v) x[k][v] = 0u;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const int j = j0 + (l + kLanes * k) * V + v;
+        if (j < d) {
+          dot = fmaf(__uint_as_float(x[k][v]), qr[k][v], dot);
+        } else if (j == d) {
+          nrm = __uint_as_float(x[k][v]);
+        } else if (j < rw) {
+          words[o * A + (j - d - 1)] = x[k][v];
+        }
+      }
+    }
   }
-  if (lane == 0) d2[o] = fmaxf(row[d] - 2.0f * acc + q_norm[b], 0.0f);
-  const uint32_t* wrow = reinterpret_cast<const uint32_t*>(row + d + 1);
-  for (int a = lane; a < A; a += 32) words[o * A + a] = wrow[a];
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1) {
+    dot += __shfl_xor_sync(mask, dot, off, kLanes);
+  }
+  if (l == l_norm) d2[o] = fmaxf(nrm - 2.0f * dot + q_norm[b], 0.0f);
+}
+
+template <int V>
+void launch(dim3 grid, bool wide, cudaStream_t s, const uint32_t* packed,
+            const int* ids, const float* q, const float* q_norm, float* d2,
+            uint32_t* words, int C, int N, int d, int A) {
+  if (wide) {
+    fused_expand_kernel<V, true><<<grid, kThreads, 0, s>>>(
+        packed, ids, q, q_norm, d2, words, C, N, d, A);
+  } else {
+    fused_expand_kernel<V, false><<<grid, kThreads, 0, s>>>(
+        packed, ids, q, q_norm, d2, words, C, N, d, A);
+  }
 }
 
 }  // namespace
@@ -67,11 +150,26 @@ extern "C" int fused_expand_f32(const void* packed, const void* ids,
   if (B == 0 || C == 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(B, (C + kWarps - 1) / kWarps);
-  fused_expand_kernel<<<grid, kWarps * 32, d * sizeof(float),
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(packed), static_cast<const int*>(ids),
-      static_cast<const float*>(q), static_cast<const float*>(q_norm),
-      static_cast<float*>(d2), static_cast<uint32_t*>(words), C, N, d, A);
+  const int rw = d + 1 + A;
+  const uintptr_t base = reinterpret_cast<uintptr_t>(packed);
+  const int V = (rw % 4 == 0 && base % 16 == 0)  ? 4
+                : (rw % 2 == 0 && base % 8 == 0) ? 2
+                                                 : 1;
+  const dim3 grid(B, (C + kGroups - 1) / kGroups);
+  const bool wide = rw > kChunk;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* p = static_cast<const uint32_t*>(packed);
+  auto* pi = static_cast<const int*>(ids);
+  auto* pq = static_cast<const float*>(q);
+  auto* pn = static_cast<const float*>(q_norm);
+  auto* pd = static_cast<float*>(d2);
+  auto* pw = static_cast<uint32_t*>(words);
+  if (V == 4) {
+    launch<4>(grid, wide, s, p, pi, pq, pn, pd, pw, C, N, d, A);
+  } else if (V == 2) {
+    launch<2>(grid, wide, s, p, pi, pq, pn, pd, pw, C, N, d, A);
+  } else {
+    launch<1>(grid, wide, s, p, pi, pq, pn, pd, pw, C, N, d, A);
+  }
   return static_cast<int>(cudaGetLastError());
 }

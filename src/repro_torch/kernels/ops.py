@@ -79,8 +79,6 @@ def fused_expand(packed: torch.Tensor, ids: torch.Tensor, q: torch.Tensor,
         raise ValueError("packed has no rows to gather")
     if A < 1:
         raise ValueError("packed rows must carry at least one attr word")
-    if d * 4 > 48 * 1024:
-        raise ValueError(f"d={d} exceeds the kernel's shared query buffer")
     _expect(packed, "packed", torch.float32, (N, row_w))
     _expect(ids, "ids", torch.int32, (B, C))
     _expect(q, "q", torch.float32, (B, d))

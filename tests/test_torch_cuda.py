@@ -38,7 +38,14 @@ def _packed(rng, n, d, a):
     words = rng.integers(0, 2 ** 32, (n, a), dtype=np.uint64).astype(
         np.uint32)
     words[0, 0] = 0x7FC00001                 # a NaN-looking payload
+    words[1, 0] = 0xFFFFFFFF
+    words[2, -1] = 0x80000000                # -0.0 as a float
     return np.concatenate([x, norm, words.view(np.float32)], axis=1)
+
+
+def _words(rng, shape):
+    return rng.integers(0, 2 ** 32, shape, dtype=np.uint64).astype(
+        np.uint32).view(np.int32)
 
 
 @pytest.fixture
@@ -50,21 +57,52 @@ def sm90():
     return torch.device("cuda")
 
 
+def _check_fused_expand(packed, ids, q, qn, d):
+    before = ops.LAUNCHES["fused_expand"]
+    d2, words = ops.fused_expand(packed, ids, q, qn, d=d)
+    assert ops.LAUNCHES["fused_expand"] == before + 1
+    pd2, pwords = ref.fused_expand(packed, ids, q, qn, d=d)
+    rows = ids.long().clamp(0, packed.shape[0] - 1)
+    scale = packed[rows, d] + qn[:, None]
+    assert bool(torch.isfinite(d2).all())
+    assert bool(((d2 - pd2).abs() <= 1e-5 * scale).all())
+    assert torch.equal(words.view(torch.int32),
+                       pwords.contiguous().view(torch.int32))
+
+
 @pytest.mark.gpu
 def test_cuda_fused_expand_matches_plain(sm90):
     rng = np.random.default_rng(4)
     packed = _t(_packed(rng, 5000, 100, 2)).to(sm90)
     ids = _t(rng.integers(0, 5000, (300, 48)).astype(np.int32)).to(sm90)
     q = _t(rng.normal(size=(300, 100)).astype(np.float32)).to(sm90)
-    qn = (q * q).sum(-1)
-    before = ops.LAUNCHES["fused_expand"]
-    d2, words = ops.fused_expand(packed, ids, q, qn, d=100)
-    assert ops.LAUNCHES["fused_expand"] == before + 1
-    pd2, pwords = ref.fused_expand(packed, ids, q, qn, d=100)
-    scale = packed[ids.long(), 100] + qn[:, None]
-    assert bool(((d2 - pd2).abs() <= 1e-5 * scale).all())
-    assert torch.equal(words.view(torch.int32),
-                       pwords.contiguous().view(torch.int32))
+    _check_fused_expand(packed, ids, q, (q * q).sum(-1), 100)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,A", [(100, 1), (100, 2), (100, 3), (200, 2),
+                                 (255, 1)])
+@pytest.mark.parametrize("C", [1, 7, 144, 145])
+@pytest.mark.parametrize("B", [1, 315])
+def test_cuda_fused_expand_shapes(sm90, d, A, C, B):
+    """Row widths of 102, 103 and 104 words (the kernel reads them in
+    pairs, singly and in fours), rows wider than one pass of 128 words (203
+    and 257), C on both sides of the main path's 144, ids out of range
+    (clamped) and attr words that are a NaN payload, all ones or the sign
+    bit alone. Each case also runs on a copy of the table that starts one
+    float past a 16-byte boundary, where only single-word loads are
+    aligned."""
+    rng = np.random.default_rng(d * 1000 + A * 100 + C)
+    N, rw = 3000, d + 1 + A
+    packed = _t(_packed(rng, N, d, A)).to(sm90)
+    shifted = torch.empty(N * rw + 1, device=sm90)[1:].view(N, rw)
+    shifted.copy_(packed)
+    ids = rng.integers(-2, N + 2, (B, C)).astype(np.int32)
+    ids[0, 0], ids[-1, -1] = -1, N
+    ids = _t(ids).to(sm90)
+    q = _t(rng.normal(size=(B, d)).astype(np.float32)).to(sm90)
+    for table in (packed, shifted):
+        _check_fused_expand(table, ids, q, (q * q).sum(-1), d)
 
 
 @pytest.mark.gpu
@@ -98,6 +136,26 @@ def test_cuda_bitset_dist_exact(sm90, op):
     b = pack_bits(torch.rand((700, 1 << 12), generator=g, device=sm90) < 0.5)
     assert torch.equal(ops.bitset_dist(a, b, op=op),
                        ref.bitset_dist(a, b, op=op))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["xor", "deficit"])
+@pytest.mark.parametrize("W", [1, 2, 3, 4, 5, 32, 33, 1024])
+@pytest.mark.parametrize("N", [1, 3, 4095, 4096, 4097])
+@pytest.mark.parametrize("B", [1, 568])
+def test_cuda_bitset_dist_shapes(sm90, op, W, N, B):
+    """Both kernels (runs of four outputs up to W = 2, tiles above), output
+    rows that start off a 16-byte boundary (N % 4 != 0), and b taken one row
+    past the start of its allocation, which a vector load may not read at
+    odd W."""
+    rng = np.random.default_rng(W * 10007 + N)
+    a = _t(_words(rng, (B, W))).to(sm90)
+    store = _t(_words(rng, (N + 1, W))).to(sm90)
+    for b in (store[:N], store[1:]):
+        before = ops.LAUNCHES["bitset_dist"]
+        got = ops.bitset_dist(a, b, op=op)
+        assert ops.LAUNCHES["bitset_dist"] == before + 1
+        assert torch.equal(got, ref.bitset_dist(a, b, op=op))
 
 
 @pytest.mark.gpu

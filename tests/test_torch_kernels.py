@@ -37,15 +37,23 @@ def _packed(rng, n, d, a):
     words = rng.integers(0, 2 ** 32, (n, a), dtype=np.uint64).astype(
         np.uint32)
     words[0, 0] = 0x7FC00001                 # a NaN-looking payload
+    words[1, 0] = 0xFFFFFFFF
+    words[2, -1] = 0x80000000                # -0.0 as a float
     return np.concatenate([x, norm, words.view(np.float32)], axis=1)
 
 
-@pytest.mark.parametrize("shape", [(64, 3, 7, 12, 1), (200, 5, 48, 100, 2)])
+# (N, B, C, d, A); d = 100 with A = 1, 2, 3 gives the row widths 102, 103
+# and 104 words, which the CUDA kernel reads in pairs, singly and in fours
+@pytest.mark.parametrize("shape", [(64, 3, 7, 12, 1), (200, 5, 48, 100, 2),
+                                   (300, 2, 144, 100, 1),
+                                   (300, 1, 145, 100, 3),
+                                   (300, 3, 1, 100, 2)])
 def test_fused_expand_plain_matches_reference(shape):
     N, B, C, d, A = shape
     rng = np.random.default_rng(0)
     packed = _packed(rng, N, d, A)
     ids = rng.integers(-3, N + 3, (B, C)).astype(np.int32)
+    ids[0, 0], ids[-1, -1] = -1, N           # clamped to the first, last row
     q = rng.normal(size=(B, d)).astype(np.float32)
     qn = (q * q).sum(-1)
     d2, words = ops.fused_expand(_t(packed), _t(ids), _t(q), _t(qn), d=d)
@@ -96,12 +104,10 @@ def test_gather_dist_tile_plain_is_the_kernels_sequential_sum():
     assert np.array_equal(got, np.maximum(xn - 2 * dot + qn[:, None], 0))
 
 
-@pytest.mark.parametrize("op", ["xor", "deficit"])
-@pytest.mark.parametrize("W", [1, 3, 40])
-def test_bitset_dist_plain_exact(op, W):
+def _check_bitset_plain(op, B, N, W):
     rng = np.random.default_rng(3)
-    a = rng.integers(0, 2 ** 32, (17, W), dtype=np.uint64).astype(np.uint32)
-    b = rng.integers(0, 2 ** 32, (29, W), dtype=np.uint64).astype(np.uint32)
+    a = rng.integers(0, 2 ** 32, (B, W), dtype=np.uint64).astype(np.uint32)
+    b = rng.integers(0, 2 ** 32, (N, W), dtype=np.uint64).astype(np.uint32)
     a[0] = 0xFFFFFFFF
     got = ops.bitset_dist(_t(a.view(np.int32)), _t(b.view(np.int32)), op=op)
     wrap = rops.hamming if op == "xor" else rops.subset_deficit
@@ -113,6 +119,22 @@ def test_bitset_dist_plain_exact(op, W):
     named = ops.hamming if op == "xor" else ops.subset_deficit
     assert torch.equal(named(_t(a.view(np.int32)), _t(b.view(np.int32))),
                        got)
+
+
+# W up to 2 takes the CUDA kernel's runs of four outputs, above it the tiles
+@pytest.mark.parametrize("op", ["xor", "deficit"])
+@pytest.mark.parametrize("W", [1, 2, 3, 4, 5, 32, 33, 40, 1024])
+def test_bitset_dist_plain_exact(op, W):
+    _check_bitset_plain(op, 17, 29, W)
+
+
+# output rows that start off a 16-byte boundary (N % 4 != 0: each of the
+# four offsets among 37 rows) and one query
+@pytest.mark.parametrize("op", ["xor", "deficit"])
+@pytest.mark.parametrize("W", [1, 33])
+@pytest.mark.parametrize("B,N", [(1, 1), (1, 3), (1, 4097), (37, 4095)])
+def test_bitset_dist_plain_exact_ragged(op, W, B, N):
+    _check_bitset_plain(op, B, N, W)
 
 
 def test_wrappers_count_no_launch_on_the_cpu_and_reject_mixed_devices():

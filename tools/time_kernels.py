@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Time the port's flash_attention and gather_dist_tile kernels on one H100.
+"""Time four of the port's kernels on one H100: flash_attention,
+gather_dist_tile, fused_expand and bitset_dist.
 
     python3 tools/time_kernels.py [--src DIR] [--lanes B [B ...]]
+                                  [--widths W [W ...]]
 
 Imports ``repro_torch`` from ``--src`` (default: this checkout's ``src``),
 so one command can time two checkouts on the same card in turns (parent,
@@ -16,8 +18,21 @@ lane. Each kernel is first held against its plain version with
 chip_smoke's own checks: flash_attention must pass its bf16 gate and
 gather_dist_tile its d2 tolerance; whether gather_dist_tile is also
 bit-exact, as chip_smoke requires, is printed with its times, so that a
-variant of the source that gives up the contract can be timed too. Prints
-nvidia-smi's name and power limit, then one JSON line.
+variant of the source that gives up the contract can be timed too.
+
+fused_expand runs at slice A's graph shape, packed [1000000, 102] (d =
+100, one attr word) and ids [315, 144], with cold rows (chip_smoke's
+COLD_SETS id batches in turn, more rows than the L2 holds) and warm (one
+batch); bitset_dist (deficit) at the prefilter scan's subset shape, a
+[568, 1] against b [4096, 1], and at the Boolean width, a [128, 1024]
+against one-hot b [4096, 1024]; ``--widths`` adds a [568, W] against b
+[4096, W] for each W given. Both are held exactly (bitset_dist) or within
+DTOL with bitwise words (fused_expand) against their plain versions first.
+Beside them stand PyTorch yardsticks of the same bytes, which the port
+does not call: for fused_expand an ``index_select`` of the same rows and
+a copy of as many contiguous rows, both cold; for bitset_dist a
+``fill_`` of an output of the same size.
+Prints nvidia-smi's name and power limit, then one JSON line.
 """
 from __future__ import annotations
 
@@ -29,8 +44,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
-from chip_smoke import (check_flash, check_scan_tile,  # noqa: E402
-                        cuda_ms)
+from chip_smoke import (COLD_SETS, check_bitset,  # noqa: E402
+                        check_flash, check_fused_expand, check_scan_tile,
+                        cold_ms, cuda_ms)
 
 ITERS = 20
 
@@ -40,12 +56,16 @@ def main(argv=None) -> int:
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--lanes", type=int, nargs="+", default=[568],
                     help="gather_dist_tile query batch widths")
+    ap.add_argument("--widths", type=int, nargs="*", default=[],
+                    help="more bitset_dist word counts W, at a [568, W] "
+                         "against b [4096, W]")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("time_kernels: torch sees no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, args.src)
+    from repro_torch.core.filters import onehot_words, pack_bits
     from repro_torch.kernels import _build, ops, ref
     _build.build_all()
     dev = torch.device("cuda")
@@ -80,6 +100,62 @@ def main(argv=None) -> int:
                        10 * ITERS),
             mm_ms=cuda_ms(torch, lambda: torch.mm(qp, x_tile.T),
                           10 * ITERS))
+    del xb, x_tile, qp
+
+    n, d, B, C = 1_000_000, 100, 315, 144
+    x = torch.randn((n, d), generator=gen, device=dev)
+    attr = torch.randint(0, 2 ** 30, (n, 1), generator=gen, device=dev,
+                         dtype=torch.int32)
+    packed = torch.cat([x, (x * x).sum(-1, keepdim=True),
+                        attr.view(torch.float32)], dim=1)
+    del x, attr
+    q = torch.randn((B, d), generator=gen, device=dev)
+    qn = (q * q).sum(-1)
+    id_sets = [torch.randint(0, n, (B, C), generator=gen, device=dev,
+                             dtype=torch.int32) for _ in range(COLD_SETS)]
+    check_fused_expand(torch, ops, ref, packed, id_sets[0], q, qn, d)
+    # yardsticks, cold as well: one PyTorch gather of the same rows, and a
+    # copy of as many contiguous rows (the same bytes, read in order)
+    flat = [s.reshape(-1).long() for s in id_sets]
+    slabs = [packed[i * B * C:(i + 1) * B * C] for i in range(COLD_SETS)]
+    slab_out = torch.empty_like(slabs[0])
+    res["fused_expand"] = dict(
+        cold_ms=cold_ms(torch, [lambda s=s: ops.fused_expand(packed, s, q, qn,
+                                                             d=d)
+                                for s in id_sets], 10 * ITERS),
+        warm_ms=cuda_ms(torch, lambda: ops.fused_expand(packed, id_sets[0], q,
+                                                        qn, d=d), 10 * ITERS),
+        index_select_cold_ms=cold_ms(
+            torch, [lambda s=s: torch.index_select(packed, 0, s)
+                    for s in flat], 10 * ITERS),
+        contiguous_copy_cold_ms=cold_ms(
+            torch, [lambda s=s: slab_out.copy_(s) for s in slabs],
+            10 * ITERS))
+    del packed, id_sets, flat, slabs, slab_out
+
+    def words(shape):
+        return torch.randint(0, 2 ** 32, shape, generator=gen, device=dev,
+                             dtype=torch.int64).to(torch.int32)
+
+    cases = {"a[568,1] b[4096,1]": (words((568, 1)), words((4096, 1)))}
+    sat = pack_bits(torch.rand((128, 1 << 15), generator=gen, device=dev)
+                    < 0.3)
+    hot = onehot_words(torch.randint(0, 1 << 15, (4096,), generator=gen,
+                                     device=dev), 1 << 15)
+    cases["a[128,1024] b[4096,1024]"] = (sat, hot)
+    for w in args.widths:
+        cases[f"a[568,{w}] b[4096,{w}]"] = (words((568, w)),
+                                            words((4096, w)))
+    res["bitset_dist"] = {}
+    for label, (a, b) in cases.items():
+        check_bitset(torch, ops, ref, a, b)
+        out = torch.empty((a.shape[0], b.shape[0]), dtype=torch.int32,
+                          device=dev)
+        res["bitset_dist"][label] = dict(
+            ms=cuda_ms(torch, lambda: ops.subset_deficit(a, b), 10 * ITERS),
+            # yardstick: one PyTorch write of the same output bytes
+            fill_ms=cuda_ms(torch, lambda: out.fill_(0), 10 * ITERS))
+
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
