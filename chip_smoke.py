@@ -11,9 +11,11 @@ result line:
 1. Device: CUDA with capability (9, 0); prints nvidia-smi's name and power
    limit.
 2. Kernel build: nvcc compiles every kernel of ``src/repro_torch/csrc``
-   (one process per source, all at once). The count of ``HGMMA``
-   instructions (wgmma) that ``cuobjdump -sass`` finds in the tensor-core
-   attention library is printed and must be above 0.
+   (one process per source, all at once). ``cuobjdump -sass`` counts the
+   tensor-core instructions of the three libraries built on them, which
+   must each hold some: ``HGMMA`` (wgmma) in ``flash_attention``, ``l2dist``
+   and ``flash_attention_f32``, and ``HMMA`` (mma.sync, its head_dim-256
+   kernel) in ``flash_attention_f32``.
 3. Kernels against their plain versions, at the shapes the main path gives
    them (slice A's data and its per-query plan, slice C's prefill): max
    errors, kernel time, plain-version time and a one-call PyTorch
@@ -23,7 +25,13 @@ result line:
    in bf16 (the tensor-core kernel): |kernel - plain| <= 2^-7 |plain| +
    1e-5, one bf16 rounding step (both round float32 values that differ in
    the sum order and, for the kernel, by p's split into two bf16 halves,
-   about 2^-17 of p); in float32 (the SIMT kernel) 1e-4 |plain| + 1e-4.
+   about 2^-17 of p); in float32 (split-TF32 tensor cores) 1e-4 |plain|
+   + 1e-4. l2dist and flash_attention_f32 compute float32 products as three
+   TF32 passes (hi and lo halves of each operand), so their operations
+   bound is 3x their flops at the TF32 rate; the FP32 rate's figure is
+   logged beside it and kept in the report (``fp32_bound_ms``), not in the
+   kernels line, and l2dist's largest error is printed as a share of its
+   d2 limit.
    gather_dist and l2dist have no caller on a path; they are held at slice
    A's graph shapes and at the prefilter scan's and kernels_bench's widths;
    the float32 attention kernel at slice C's shape in float32. Edge shapes:
@@ -58,7 +66,7 @@ result line:
    (exactly 28 launches of ``flash_attention``, none of
    ``flash_attention_f32``), then 32 greedy ``decode_step``s. Checks: in
    float32 (the masters, before the cast), the prefill's logits with the
-   FP32 SIMT kernel (exactly 28 launches of ``flash_attention_f32``)
+   split-TF32 kernel (exactly 28 launches of ``flash_attention_f32``)
    against the plain attention within 1e-4 of the largest logit (float32
    sum order). In bf16 the two differ by more: an attention output that moves
    by one bf16 step moves every later layer's roundings. The yardstick is
@@ -85,6 +93,8 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM FP32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
+TF32_OPS_PER_S = 495e12        # H100 SXM TF32 tensor cores, dense
+TF32_PASSES = 3                # split-TF32 products of float32 operands
 POPC_PER_CLOCK = 16            # popcounts a clock an SM, compute capability
                                # 9.0 (CUDA C++ Programming Guide, throughput
                                # of native arithmetic instructions)
@@ -157,6 +167,14 @@ def bound_ms(n_bytes: float, n_ops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def split_bound_ms(n_bytes: float, n_ops: float) -> tuple:
+    """(bound ms, by, FP32-rate ms) of a kernel whose float32 products run
+    as TF32_PASSES passes on the TF32 tensor cores; the third figure is the
+    same work at the FP32 rate of the CUDA cores."""
+    b, o = bound_ms(n_bytes, TF32_PASSES * n_ops, TF32_OPS_PER_S)
+    return b, o, bound_ms(n_bytes, n_ops)[0]
+
+
 def check_d2(torch, name, got, want, scale):
     err = (got - want).abs()
     bad = err > DTOL * scale
@@ -196,6 +214,18 @@ def check_bitset(torch, ops, ref, a, b) -> float:
         torch, f"bitset_dist[{op}] a{tuple(a.shape)} b{tuple(b.shape)}",
         ops.bitset_dist(a, b, op=op), ref.bitset_dist(a, b, op=op))
         for op in ("deficit", "xor"))
+
+
+def check_l2dist(torch, ops, ref, q, x) -> tuple:
+    """l2dist against its plain version within DTOL: (max error, its
+    largest share of the limit), the share printed."""
+    got, want = ops.l2dist(q, x), ref.l2dist(q, x)
+    scale = torch.sum(q * q, -1)[:, None] + torch.sum(x * x, -1)[None]
+    label = f"l2dist {tuple(q.shape)}x{tuple(x.shape)}"
+    err = check_d2(torch, label, got, want, scale)
+    share = float(((got - want).abs() / (DTOL * scale)).max())
+    log(f"[kernels] {label}: largest error {share:.4f} of the d2 limit")
+    return err, share
 
 
 def check_flash(torch, ops, ref, q, k, v) -> float:
@@ -334,11 +364,14 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
     report["kernel_build_s"] = t_build
-    n_hgmma = _build.sass_count("flash_attention", "HGMMA")
-    log(f"[build] flash_attention: {n_hgmma} HGMMA instructions in its SASS")
-    if n_hgmma == 0:
-        raise AssertionError("flash_attention holds no wgmma instruction")
-    report["flash_attention_hgmma"] = n_hgmma
+    for name, opcode in (("flash_attention", "HGMMA"), ("l2dist", "HGMMA"),
+                         ("flash_attention_f32", "HGMMA"),
+                         ("flash_attention_f32", "HMMA")):
+        n_op = _build.sass_count(name, opcode)
+        log(f"[build] {name}: {n_op} {opcode} instructions in its SASS")
+        if n_op == 0:
+            raise AssertionError(f"{name} holds no {opcode} instruction")
+        report[f"{name}_{opcode.lower()}"] = n_op
 
     # -- 3. kernels against their plain versions ---------------------------
     N, D, NQ, K, LS = args.n, 100, 1024, 10, 64
@@ -442,33 +475,31 @@ def main(argv=None) -> int:
     # of slice A's rows, and kernels_bench's 256 x 8192 x 128
     xl = xb[:min(N, 262_144)]
 
-    def check_l2(qq, xx):
-        got, want = ops.l2dist(qq, xx), ref.l2dist(qq, xx)
-        sc = torch.sum(qq * qq, -1)[:, None] + torch.sum(xx * xx, -1)[None]
-        return check_d2(torch, f"l2dist {tuple(qq.shape)}x{tuple(xx.shape)}",
-                        got, want, sc)
-
-    err = check_l2(q_all, xl)
-    b, o = bound_ms((NQ * D + len(xl) * D + NQ * len(xl)) * 4,
-                    2 * NQ * len(xl) * D)
+    err, share = check_l2dist(torch, ops, ref, q_all, xl)
+    b, o, b32 = split_bound_ms((NQ * D + len(xl) * D + NQ * len(xl)) * 4,
+                               2 * NQ * len(xl) * D)
     kernels["l2dist"] = dict(
         name="l2dist", route="cuda", source="src/repro_torch/csrc/l2dist.cu",
         replaces="src/repro/kernels/l2dist.py:44",
         shape=f"q[{NQ},{D}] xb[{len(xl)},{D}]", max_abs_err=err,
+        err_share=share,
         ms=cuda_ms(torch, lambda: ops.l2dist(q_all, xl), 10),
         plain_ms=cuda_ms(torch, lambda: ref.l2dist(q_all, xl), 3),
-        bound_ms=b, bound_by=o,
+        bound_ms=b, bound_by=o, fp32_bound_ms=b32,
         library_ms=cuda_ms(torch, lambda: torch.mm(q_all, xl.T), 10))
     qb8 = torch.randn((256, 128), generator=gen, device=dev)
     xb8 = torch.randn((8192, 128), generator=gen, device=dev)
-    bench = dict(max_abs_err=check_l2(qb8, xb8),
+    err8, share8 = check_l2dist(torch, ops, ref, qb8, xb8)
+    bench = dict(max_abs_err=err8, err_share=share8,
                  ms=cuda_ms(torch, lambda: ops.l2dist(qb8, xb8), 50),
                  library_ms=cuda_ms(torch, lambda: torch.mm(qb8, xb8.T), 50))
-    bench["bound_ms"], bench["bound_by"] = bound_ms(
-        (256 * 128 + 8192 * 128 + 256 * 8192) * 4, 2 * 256 * 8192 * 128)
+    bench["bound_ms"], bench["bound_by"], bench["fp32_bound_ms"] = \
+        split_bound_ms((256 * 128 + 8192 * 128 + 256 * 8192) * 4,
+                       2 * 256 * 8192 * 128)
     log(f"[kernels] l2dist q[256,128] xb[8192,128] (kernels_bench): "
         f"{bench['ms']:.4f} ms (bound {bench['bound_ms']:.4f} ms by "
-        f"{bench['bound_by']}, torch.mm {bench['library_ms']:.4f} ms)")
+        f"{bench['bound_by']}, FP32 rate {bench['fp32_bound_ms']:.4f} ms, "
+        f"torch.mm {bench['library_ms']:.4f} ms)")
     report["l2dist_kernels_bench"] = bench
     del xl, qb8, xb8
     torch.cuda.empty_cache()
@@ -501,8 +532,9 @@ def main(argv=None) -> int:
     # flash_attention_f32: the float32 check prefill's attention, same shape
     fq, fk, fv = (t.float() for t in (fq, fk, fv))
     ferr = check_flash(torch, ops, ref, fq, fk, fv)
-    b, o = bound_ms(n_el * fq.element_size(),
-                    2 * LM_BATCH * lm.n_heads * LM_PROMPT ** 2 * lm.hd)
+    b, o, b32 = split_bound_ms(
+        n_el * fq.element_size(),
+        2 * LM_BATCH * lm.n_heads * LM_PROMPT ** 2 * lm.hd)
     kernels["flash_attention_f32"] = dict(
         name="flash_attention_f32", route="cuda",
         source="src/repro_torch/csrc/flash_attention_f32.cu",
@@ -513,7 +545,7 @@ def main(argv=None) -> int:
         ms=cuda_ms(torch, lambda: ops.flash_attention(fq, fk, fv), 3),
         plain_ms=cuda_ms(torch, lambda: ref.flash_attention(fq, fk, fv), 2,
                          warmup=1),
-        bound_ms=b, bound_by=o,
+        bound_ms=b, bound_by=o, fp32_bound_ms=b32,
         library_ms=cuda_ms(torch, lambda: sdpa(fq, fk, fv, is_causal=True,
                                                enable_gqa=True), 5))
     del fq, fk, fv
@@ -597,10 +629,12 @@ def main(argv=None) -> int:
     report["bitset_dist_boolean_width"] = dict(
         ms=bool_ms, plain_ms=bool_plain, bound_ms=bb, bound_by=bo)
     for kr in kernels.values():
+        fp32 = (f", FP32 rate {kr['fp32_bound_ms']:.4f} ms"
+                if "fp32_bound_ms" in kr else "")
         log(f"[kernels] {kr['name']} {kr['shape']}: max_abs_err "
             f"{kr['max_abs_err']:.3g}, {kr['ms']:.4f} ms (plain "
             f"{kr['plain_ms']:.4f} ms, bound {kr['bound_ms']:.4f} ms by "
-            f"{kr['bound_by']}, library {kr['library_ms']})")
+            f"{kr['bound_by']}{fp32}, library {kr['library_ms']})")
     del lay, xpad, satg, hot
     torch.cuda.empty_cache()
 

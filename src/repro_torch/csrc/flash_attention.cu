@@ -5,7 +5,7 @@
 // (a Pallas kernel on a (B*H, Tq/bq, Tk/bk) grid that carries the running
 // max, sum and accumulator of a q tile in VMEM scratch across the
 // sequential kv grid steps). Float32 inputs, and bf16 rows whose width TMA
-// cannot take (D not a multiple of 8), go to the FP32 SIMT kernel in
+// cannot take (D not a multiple of 8), go to the split-TF32 kernel in
 // flash_attention_f32.cu.
 //
 // Contract: q [B, H, Tq, D], k/v [B, Hkv, Tk, D], bf16, contiguous, H a
@@ -66,7 +66,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int kStages = 3;
 
@@ -90,10 +94,6 @@ struct Layout {
   static constexpr int kSmem = kBarOff + 64 + 1024;
   static constexpr int kThreads = 128 * (kWG + 1);
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
@@ -133,46 +133,12 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// 2^x on the SFU; results below 2^-126 flush to 0 (against a row sum of
-// at least 1).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // wgmma shared-memory descriptor of a 128-byte swizzled operand.
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
                                                uint32_t sbo) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) |
          (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// Keep the compiler from moving reads or writes of registers that an
-// asynchronous wgmma owns across the fence, wait or commit beside it.
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-template <int N>
-__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
 }
 
 // m64nNk16, f32 += bf16 * bf16. ss: A and B from shared memory (K-major);

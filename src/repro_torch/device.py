@@ -8,8 +8,12 @@ do).
 Resolving a CUDA device also turns TF32 off for float32 matrix products and
 convolutions (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32``): the JAX reference computes in full
-float32, and TF32 keeps only about three decimal digits, enough to reorder
-the exact scan's ids.
+float32, and one TF32 pass keeps only about three decimal digits, enough to
+reorder the exact scan's ids. The port's own kernels that run float32
+products on the TF32 tensor cores (``l2dist``, ``flash_attention_f32``)
+split each operand into hi and lo TF32 halves and take three passes, which
+holds the float32 tolerances of their checks (``csrc/tf32x3.cuh``); these
+flags do not reach them.
 """
 from __future__ import annotations
 

@@ -1,10 +1,11 @@
 """Build the CUDA kernels with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` compiles on its own into
-``_build/<name>-<hash of the source>.so`` next to the package (the
-directory is listed in ``.gitignore``), with a plain C interface and no
-PyTorch headers, so a build takes seconds. A library is built at first use
-and reused while its source is unchanged. ``build_all`` starts one nvcc per
+``_build/<name>-<hash>.so`` next to the package (the directory is listed
+in ``.gitignore``), with a plain C interface and no PyTorch headers, so a
+build takes seconds. The hash covers the source, the shared headers
+``csrc/*.cuh`` and the flags: a library is built at first use and reused
+while none of them changes. ``build_all`` starts one nvcc per
 source, all at once, and waits for every one of them.
 
 Nothing here runs at import time: the CPU tests import every module on a
@@ -34,11 +35,11 @@ SIGNATURES = {
     "gather_dist_tile": ("gather_dist_tile_f32", [_P] * 4 + [_I] * 5 + [_P]),
     "bitset_dist": ("bitset_dist_u32", [_P] * 3 + [_I] * 5 + [_P]),
     "gather_dist": ("gather_dist", [_P] * 4 + [_I] * 6 + [_P]),
-    "l2dist": ("l2dist", [_P] * 3 + [_I] * 5 + [_P]),
+    "l2dist": ("l2dist", [_P] * 4 + [_I] * 5 + [_P]),
     "flash_attention": ("flash_attention",
                         [_P] * 4 + [_I] * 7 + [_F, _I, _P]),
     "flash_attention_f32": ("flash_attention_f32",
-                            [_P] * 4 + [_I] * 8 + [_F, _I, _P]),
+                            [_P] * 5 + [_I] * 8 + [_F, _I, _P]),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -57,9 +58,13 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:12]}.so"
+    """The library of ``name``, keyed by its source, every shared header
+    (``csrc/*.cuh``, which a source may include) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all(names: Sequence[str] = SOURCES) -> Dict[str, Path]:

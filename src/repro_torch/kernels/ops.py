@@ -13,6 +13,7 @@ no launch: the wrapper returns it without calling the kernel or counting.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Dict
 
@@ -178,8 +179,11 @@ def gather_dist(xb: torch.Tensor, ids: torch.Tensor,
 
 def l2dist(q: torch.Tensor, xb: torch.Tensor) -> torch.Tensor:
     """Squared L2 distance matrix: q [B, d], xb [N, d], both f32 or both
-    bf16 -> f32 [B, N] = max(|q|^2 + |x|^2 - 2 q.x, 0), the product in
-    FP32 on the CUDA cores (never TF32)."""
+    bf16 -> f32 [B, N] = max(|q|^2 + |x|^2 - 2 q.x, 0). On the card the
+    product runs on the TF32 tensor cores as three passes over hi and lo
+    halves of each f32 operand (``csrc/tf32x3.cuh``), within 1e-5 (|q|^2 +
+    |x|^2) of the plain version; bf16 is exact in TF32 and takes one
+    pass."""
     if not _on_card(q, xb):
         return ref.l2dist(q, xb)
     B, d = q.shape
@@ -190,7 +194,9 @@ def l2dist(q: torch.Tensor, xb: torch.Tensor) -> torch.Tensor:
     _expect(xb, "xb", q.dtype, (N, d))
     out = torch.empty((B, N), dtype=torch.float32, device=q.device)
     if out.numel():
-        _launch("l2dist", q, xb, out, B, N, d,
+        scratch = torch.empty(_scratch_bytes("l2dist", N, d),
+                              dtype=torch.uint8, device=q.device)
+        _launch("l2dist", q, xb, out, scratch, B, N, d,
                 int(q.dtype == torch.bfloat16))
     return out
 
@@ -205,10 +211,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Causal attention (mask row >= col) needs Tq == Tk and raises otherwise.
     The kernels mask ragged Tq, Tk and D themselves, so nothing is padded.
 
-    Two kernels, picked by dtype and width: bf16 with D a multiple of 8 (and
-    16-byte aligned tensors) runs on the tensor cores (``flash_attention``,
-    counted under that name); float32, and bf16 of another width, runs the
-    FP32 SIMT kernel (``flash_attention_f32``).
+    Two kernels, picked by dtype and width, both on the tensor cores: bf16
+    with D a multiple of 8 (and 16-byte aligned tensors) runs on wgmma
+    (``flash_attention``, counted under that name); float32, and bf16 of
+    another width, runs both products as three TF32 passes over hi and lo
+    halves (``flash_attention_f32``: wgmma up to D = 128, mma.sync above),
+    after a pre-pass that splits K and V once into scratch; up to D = 128
+    short runs of instructions are summed on the CUDA cores, which keeps
+    its error against float64 at the plain float32 version's.
     """
     if not _on_card(q, k, v):
         return ref.flash_attention(q, k, v, causal=causal)
@@ -239,6 +249,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else:
         if B * H > 65535:
             raise ValueError(f"B * H = {B * H} exceeds the grid's y extent")
-        _launch("flash_attention_f32", q, k, v, out, B, H, Hkv, Tq, Tk, D,
-                int(causal), int(q.dtype == torch.bfloat16), scale)
+        scratch = torch.empty(
+            _scratch_bytes("flash_attention_f32", B, Hkv, Tk, D),
+            dtype=torch.uint8, device=q.device)
+        _launch("flash_attention_f32", q, k, v, out, scratch, B, H, Hkv, Tq,
+                Tk, D, int(causal), int(q.dtype == torch.bfloat16), scale)
     return out
+
+
+def _scratch_bytes(name: str, *shape: int) -> int:
+    """Bytes of scratch kernel ``name`` needs for these sizes, from its
+    library's ``<name>_scratch``: the images of the operand tiles that its
+    pre-pass splits once for every block that reads them
+    (``csrc/l2dist.cu``, ``csrc/flash_attention_f32.cu``)."""
+    fn = getattr(_build.library(name), f"{name}_scratch")
+    fn.argtypes = [ctypes.c_int] * len(shape)
+    fn.restype = ctypes.c_longlong
+    return int(fn(*shape))

@@ -5,10 +5,12 @@ elsewhere. The module imports no JAX, so it runs on a machine without it:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 
-d2 agrees within 1e-5 of |x|^2 + |q|^2 (another float summation order);
+d2 agrees within 1e-5 of |x|^2 + |q|^2 (another float summation order;
+l2dist's split-TF32 product loses about 2^-22 of |q||x| besides);
 attr words, the scan tile and popcounts are bit-exact. gather_dist agrees
 within 1e-5 of its value (a sum of squares). Attention in float32 agrees
-within 1e-4 (another order of the float32 sums, amplified by exp); in bf16
+within 1e-4 (another order of the float32 sums and the split-TF32
+products, amplified by exp); in bf16
 both outputs are float32 values rounded once, so they may differ by one
 bf16 step, 2^-7 of the value, plus 1e-5: the tensor-core kernel rounds p
 to bf16 as p_hi + p_lo, about 2^-17 of p (``test_torch_kernels.py``).
@@ -174,24 +176,39 @@ def test_cuda_gather_dist_matches_plain(sm90, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,N,d", [(200, 1000, 100), (7, 129, 13),
-                                   (256, 8192, 128)])
+@pytest.mark.parametrize("B,N,d", [
+    (200, 1000, 100), (7, 129, 13), (256, 8192, 128),
+    (37, 4099, 100),      # B < 64, N % 4 == 3, several x tiles a block
+    (300, 1030, 13),      # d % 4 != 0: single-value loads; N % 4 == 2
+    (63, 2049, 130),      # d > 104: two chunks of d
+    (129, 517, 256),      # three chunks; a second, nearly empty q tile
+    (1, 3, 100),
+])
 def test_cuda_l2dist_matches_plain(sm90, dtype, B, N, d):
+    """Query and x tiles with ragged edges, d past one 104-wide chunk, odd
+    N (single-value stores) and, on a copy of xb that starts one element
+    past its allocation, loads that cannot be vectors."""
     rng = np.random.default_rng(7)
     q = _t(rng.normal(size=(B, d)).astype(np.float32)).to(sm90, dtype)
     xb = _t(rng.normal(size=(N, d)).astype(np.float32)).to(sm90, dtype)
-    got = ops.l2dist(q, xb)
+    shifted = torch.empty(N * d + 1, dtype=dtype, device=sm90)[1:].view(N, d)
+    shifted.copy_(xb)
     want = ref.l2dist(q, xb)
     qf, xf = q.float(), xb.float()
     scale = (qf * qf).sum(-1)[:, None] + (xf * xf).sum(-1)[None, :]
-    assert bool(((got - want).abs() <= 1e-5 * scale).all())
+    for table in (xb, shifted):
+        before = ops.LAUNCHES["l2dist"]
+        got = ops.l2dist(q, table)
+        assert ops.LAUNCHES["l2dist"] == before + 1
+        assert got.shape == (B, N) and bool(torch.isfinite(got).all())
+        assert bool(((got - want).abs() <= 1e-5 * scale).all())
 
 
 def _flash_kernel(dtype, D):
     """The launch counter that a call of ops.flash_attention moves."""
     if dtype == torch.bfloat16 and D % 8 == 0:
-        return "flash_attention"          # the tensor cores
-    return "flash_attention_f32"          # FP32 SIMT
+        return "flash_attention"          # bf16 wgmma
+    return "flash_attention_f32"          # split-TF32 mma.sync
 
 
 def _check_flash(q, k, v, causal):
@@ -213,7 +230,7 @@ def _check_flash(q, k, v, causal):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [12, 64, 128, 256])
+@pytest.mark.parametrize("D", [12, 13, 64, 100, 128, 256])
 @pytest.mark.parametrize("B,H,Hkv,Tq,Tk,causal", [
     (2, 4, 2, 300, 300, True),      # GQA, ragged T
     (1, 4, 1, 70, 200, False),      # MQA, cross-length, bidirectional

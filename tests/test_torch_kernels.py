@@ -292,3 +292,255 @@ def test_flash_attention_split_p_keeps_the_bf16_gate():
     assert np.all(np.abs(split.float().numpy() - want) <= tol)
     single = _flash_tensor_core_arithmetic(tq, tk, tv, split=False)
     assert np.sum(np.abs(single.float().numpy() - want) > tol) > 0.05 * want.size
+
+
+def _tf32(x):
+    """float32 values rounded to TF32 as ``cvt.rna.tf32.f32`` does: to
+    nearest on the bit pattern, ties away from zero (add half of the 13
+    dropped bits' weight to the magnitude, then clear them); inf and NaN are
+    kept."""
+    b = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    finite = (b & np.uint32(0x7F800000)) != np.uint32(0x7F800000)
+    r = (b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)
+    return np.where(finite, r, b).view(np.float32)
+
+
+def _split(x):
+    """x = hi + lo, both TF32 (``csrc/tf32x3.cuh``)."""
+    hi = _tf32(x)
+    return hi, _tf32(np.float32(x) - hi)
+
+
+def test_tf32_split_rebuilds_float32():
+    """hi keeps 10 fraction bits (the low 13 are zero), lo the next 11, so
+    hi + lo is x to within 2^-22 |x| over float32's normal range; ties round
+    away from zero; inf and NaN pass."""
+    rng = np.random.default_rng(11)
+    x = (rng.normal(size=20000) * np.exp2(rng.integers(-100, 100, 20000))
+         ).astype(np.float32)
+    hi, lo = _split(x)
+    for part in (hi, lo):
+        assert not np.any(part.view(np.uint32) & np.uint32(0x1FFF))
+    assert np.all(np.abs(hi.astype(np.float64) + lo - x)
+                  <= 2.0 ** -22 * np.abs(x.astype(np.float64)))
+    assert np.all(np.abs(hi - x) <= 2.0 ** -11 * np.abs(x))
+    tie = np.array([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 2 ** -12],
+                   np.float32)
+    assert np.array_equal(_tf32(tie), np.array([1 + 2 ** -10,
+                                                -(1 + 2 ** -10), 1],
+                                               np.float32))
+    special = np.array([np.inf, -np.inf, np.nan], np.float32)
+    got = _tf32(special)
+    assert np.array_equal(got[:2], special[:2]) and np.isnan(got[2])
+
+
+def _tf32_product(a, b, passes):
+    """a @ b.T of float32 matrices as the tensor cores take it: one TF32
+    pass (hi.hi) or three (lo.hi + hi.lo + hi.hi), products of TF32 values
+    (exact in float32) summed in float32."""
+    a_hi, a_lo = _split(a)
+    b_hi, b_lo = _split(b)
+    if passes == 1:
+        return a_hi @ b_hi.T
+    return a_lo @ b_hi.T + a_hi @ b_lo.T + a_hi @ b_hi.T
+
+
+def test_l2dist_split_tf32_holds_the_d2_tolerance():
+    """Why csrc/l2dist.cu takes three TF32 passes. At d = 100 against the
+    JAX kernel in interpret mode, |q|^2 + |x|^2 - 2 q.x with the three-pass
+    product stays within the card's d2 tolerance, 1e-5 (|q|^2 + |x|^2),
+    everywhere (chip_smoke.DTOL; its worst entry here is 0.038 of it);
+    with one pass 73% of the entries fall outside it, the worst by 12.7
+    times: q.x then loses about 2^-11 of each term."""
+    rng = np.random.default_rng(12)
+    q = rng.normal(size=(64, 100)).astype(np.float32)
+    xb = rng.normal(size=(600, 100)).astype(np.float32)
+    want = np.asarray(rops.l2dist(q, xb, interpret=True))
+    qn = (q * q).sum(-1)[:, None]
+    xn = (xb * xb).sum(-1)[None, :]
+    limit = 1e-5 * (qn + xn)
+    for passes, ok in ((3, True), (1, False)):
+        got = np.maximum(qn + xn - 2 * _tf32_product(q, xb, passes), 0)
+        bad = np.abs(got - want) > limit
+        if ok:
+            assert not bad.any()
+            assert np.max(np.abs(got - want) / limit) < 0.5
+        else:
+            assert bad.mean() > 0.5
+
+
+def _flash_split_tf32(q, k, v, *, passes, block_k=32):
+    """csrc/flash_attention_f32.cu's arithmetic in numpy, causal: q scaled
+    by 1/sqrt(D) in float32, S and P.V through ``_tf32_product`` (its split
+    of every operand), the TPU kernel's online softmax over tiles of
+    ``block_k`` keys (the kernel's tile at D <= 128) with its -inf guards,
+    out = acc / max(l, 1e-30)."""
+    B, H, T, D = q.shape
+    G = H // k.shape[1]
+    out = np.zeros_like(q)
+    scale = np.float32(1.0 / math.sqrt(D))
+    rows = np.arange(T)[:, None]
+    for b in range(B):
+        for h in range(H):
+            qs = q[b, h] * scale
+            kh, vh = k[b, h // G], v[b, h // G]
+            m = np.full((T, 1), -np.inf, np.float32)
+            l = np.zeros((T, 1), np.float32)
+            acc = np.zeros((T, D), np.float32)
+            for k0 in range(0, T, block_k):
+                kb, vb = kh[k0:k0 + block_k], vh[k0:k0 + block_k]
+                s = _tf32_product(qs, kb, passes)
+                cols = np.arange(k0, k0 + kb.shape[0])[None, :]
+                s = np.where(rows >= cols, s, -np.inf)
+                m_new = np.maximum(m, s.max(-1, keepdims=True))
+                m_safe = np.where(np.isfinite(m_new), m_new, 0)
+                with np.errstate(invalid="ignore"):
+                    p = np.where(np.isfinite(s), np.exp(s - m_safe), 0)
+                    corr = np.where(np.isfinite(m), np.exp(m - m_safe), 0)
+                p = p.astype(np.float32)
+                l = l * corr + p.sum(-1, keepdims=True)
+                acc = acc * corr + _tf32_product(p, vb.T, passes)
+                m = m_new
+            out[b, h] = acc / np.maximum(l, 1e-30)
+    return out
+
+
+def test_flash_attention_split_tf32_holds_the_float32_gate():
+    """Why csrc/flash_attention_f32.cu splits both products. At (1, 4, 256,
+    64) float32, GQA, causal, against the JAX kernel in interpret mode, the
+    three-pass products keep every output within the card's float32 gate,
+    |out - ref| <= 1e-4 |ref| + 1e-4 (the worst at 0.0056 of it); with one
+    TF32 pass 5886 of the 65536 outputs fall outside it."""
+    rng = np.random.default_rng(13)
+    q = rng.normal(size=(1, 4, 256, 64)).astype(np.float32)
+    k = rng.normal(size=(1, 2, 256, 64)).astype(np.float32)
+    v = rng.normal(size=(1, 2, 256, 64)).astype(np.float32)
+    want = np.asarray(rflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             causal=True, block_q=64, block_k=64,
+                             interpret=True))
+    gate = 1e-4 * np.abs(want) + 1e-4
+    split = _flash_split_tf32(q, k, v, passes=3)
+    assert np.all(np.abs(split - want) <= gate)
+    single = _flash_split_tf32(q, k, v, passes=1)
+    assert np.sum(np.abs(single - want) > gate) > 0.05 * want.size
+
+
+
+def _to_f32(x, toward_zero):
+    """float64 values rounded to float32: to nearest, or toward zero."""
+    y = x.astype(np.float32)
+    if toward_zero:
+        over = np.abs(y.astype(np.float64)) > np.abs(x)
+        y = np.where(over, np.nextafter(y, np.float32(0)), y)
+    return y
+
+
+def _tensor_core_product(acc, a, b, toward_zero):
+    """acc + a @ b.T as the split-TF32 kernels issue it: per step of 8 in
+    k, the passes lo.hi, hi.lo and hi.hi, each one instruction that adds
+    its 8 exact TF32 products to acc and rounds the sum once to float32."""
+    a_hi, a_lo = (x.astype(np.float64) for x in _split(a))
+    b_hi, b_lo = (x.astype(np.float64) for x in _split(b))
+    for k0 in range(0, a.shape[1], 8):
+        ks = slice(k0, k0 + 8)
+        for x, y in ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)):
+            acc = _to_f32(acc + x[:, ks] @ y[:, ks].T, toward_zero)
+    return acc
+
+
+def _flash_on_tensor_cores(q, k, v, toward_zero, fresh, block_k=32):
+    """One causal head [T, D] with both products on the tensor cores
+    (``_tensor_core_product``). fresh: csrc/flash_attention_f32.cu's wgmma
+    order, each two k8 steps of S and each key tile's P.V summed from zero
+    and added on the CUDA cores (O = O corr + P.V, rounded once); else S of
+    a key tile in one accumulator and O, scaled by corr, accumulated by
+    every P.V instruction."""
+    T, D = q.shape
+    qs = q * np.float32(1.0 / math.sqrt(D))
+    rows = np.arange(T)[:, None]
+    m = np.full((T, 1), -np.inf, np.float32)
+    l = np.zeros((T, 1), np.float32)
+    acc = np.zeros((T, D), np.float32)
+    for k0 in range(0, T, block_k):
+        kb, vb = k[k0:k0 + block_k], v[k0:k0 + block_k]
+        if fresh:
+            s = np.zeros((T, len(kb)), np.float32)
+            for d0 in range(0, D, 16):
+                ds = slice(d0, d0 + 16)
+                s = s + _tensor_core_product(np.zeros(s.shape), qs[:, ds],
+                                             kb[:, ds], toward_zero)
+        else:
+            s = _tensor_core_product(np.zeros((T, len(kb))), qs, kb,
+                                     toward_zero)
+        s = np.where(rows >= np.arange(k0, k0 + len(kb))[None, :], s, -np.inf)
+        m_new = np.maximum(m, s.max(-1, keepdims=True))
+        m_safe = np.where(np.isfinite(m_new), m_new, 0)
+        with np.errstate(invalid="ignore"):
+            p = np.where(np.isfinite(s), np.exp(s - m_safe), 0)
+            corr = np.where(np.isfinite(m), np.exp(m - m_safe), 0)
+        p, corr = p.astype(np.float32), corr.astype(np.float32)
+        l = l * corr + p.sum(-1, keepdims=True)
+        if fresh:
+            pv = _tensor_core_product(np.zeros(acc.shape), p, vb.T, toward_zero)
+            acc = (acc.astype(np.float64) * corr + pv).astype(np.float32)
+        else:
+            acc = _tensor_core_product(acc * corr, p, vb.T, toward_zero)
+        m = m_new
+    return acc / np.maximum(l, 1e-30)
+
+
+def test_flash_attention_split_tf32_truncating_accumulation():
+    """Why csrc/flash_attention_f32.cu sums short runs of tensor-core
+    instructions from zero. Numerical studies of NVIDIA's tensor cores
+    find that an instruction rounds its float32 sum toward zero. Modelled
+    so at (1, 4, 256, 64) float32 GQA causal, with each score's 3 D / 8
+    and each output's 3 Tk / 8 instructions in one accumulator, every
+    output holds the float32 gate against the JAX kernel in interpret
+    mode, but against float64 the largest error is 3.8e-6, 7.3 times that
+    of the same order rounding to nearest, and 0.87 of the error points
+    toward zero (0.02 when rounding to nearest): truncation's bias adds up
+    along the accumulator. In the kernel's order (two k8 steps of S and
+    one key tile of P.V a fresh accumulator, added on the CUDA cores) it
+    is 9.3e-7, 4.0 times smaller."""
+    rng = np.random.default_rng(13)
+    q = rng.normal(size=(1, 4, 256, 64)).astype(np.float32)
+    k = rng.normal(size=(1, 2, 256, 64)).astype(np.float32)
+    v = rng.normal(size=(1, 2, 256, 64)).astype(np.float32)
+    want = np.asarray(rflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             causal=True, block_q=64, block_k=64,
+                             interpret=True))
+    s = np.einsum("htd,hsd->hts", q[0].astype(np.float64),
+                  np.repeat(k[0], 2, 0).astype(np.float64)) / 8.0
+    s = np.where(np.tril(np.ones((256, 256), bool)), s, -np.inf)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    exact = (p / p.sum(-1, keepdims=True)) @ np.repeat(v[0], 2, 0)
+    stats = {}
+    for fresh in (False, True):
+        for tz in (False, True):
+            got = np.stack([_flash_on_tensor_cores(q[0, h], k[0, h // 2],
+                                                   v[0, h // 2], tz, fresh)
+                            for h in range(4)])
+            assert np.all(np.abs(got - want[0])
+                          <= 1e-4 * np.abs(want[0]) + 1e-4)
+            err = got - exact
+            stats[fresh, tz] = (np.abs(err).max(),
+                                np.sum(-np.sign(exact) * err)
+                                / np.abs(err).sum())
+    assert stats[False, True][0] > 4 * stats[False, False][0]
+    assert stats[False, True][1] > 0.7 and abs(stats[False, False][1]) < 0.2
+    assert stats[True, True][0] < stats[False, True][0] / 3
+
+
+def test_kernel_library_hash_covers_the_shared_headers(tmp_path,
+                                                       monkeypatch):
+    """A library is rebuilt when a header it may include changes, not only
+    its own source (``_build._lib_path``)."""
+    from repro_torch.kernels import _build
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build._lib_path("k")
+    assert _build._lib_path("k") == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert _build._lib_path("k") != first
+    assert _build._lib_path("k").parent == _build.BUILD_DIR

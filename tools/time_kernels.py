@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time four of the port's kernels on one H100: flash_attention,
-gather_dist_tile, fused_expand and bitset_dist.
+"""Time six of the port's kernels on one H100: flash_attention (bf16 and
+float32), gather_dist_tile, fused_expand, bitset_dist and l2dist.
 
     python3 tools/time_kernels.py [--src DIR] [--lanes B [B ...]]
                                   [--widths W [W ...]]
@@ -32,12 +32,25 @@ Beside them stand PyTorch yardsticks of the same bytes, which the port
 does not call: for fused_expand an ``index_select`` of the same rows and
 a copy of as many contiguous rows, both cold; for bitset_dist a
 ``fill_`` of an output of the same size.
+The float32 attention kernel (``flash_attention_f32``, split-TF32) runs
+on the same shapes in float32, beside SDPA in float32, within chip_smoke's
+float32 gate. Its error is also measured on inputs drawn in float32 (the
+timed ones are bf16 values, whose lo halves are 0) against the same
+attention evaluated in float64, beside the plain version's: the largest
+and mean |error| and the share of the error that points toward zero,
+sum(-sign(exact) * error) / sum(|error|), which is near 0 where every
+rounding is to nearest and near 1 where they truncate. l2dist on q
+[1024, 100] against xb [262144, 100] (every
+query of slice A against a scan-sized slab), beside one ``torch.mm`` of
+the same product with TF32 off, within DTOL (its largest error's share of
+the limit is printed with its times).
 Prints nvidia-smi's name and power limit, then one JSON line.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 from pathlib import Path
@@ -45,10 +58,32 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 from chip_smoke import (COLD_SETS, check_bitset,  # noqa: E402
-                        check_flash, check_fused_expand, check_scan_tile,
-                        cold_ms, cuda_ms)
+                        check_flash, check_fused_expand, check_l2dist,
+                        check_scan_tile, cold_ms, cuda_ms)
 
 ITERS = 20
+
+
+def attention_f64(torch, q, k, v):
+    """Causal GQA softmax attention in float64, one batch row at a time."""
+    G, T = q.shape[1] // k.shape[1], q.shape[2]
+    mask = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
+    out = []
+    for b in range(q.shape[0]):
+        s = (q[b].double() / math.sqrt(q.shape[-1])) @ \
+            k[b].double().repeat_interleave(G, 0).transpose(-1, -2)
+        out.append(torch.softmax(s.masked_fill(~mask, -math.inf), -1)
+                   @ v[b].double().repeat_interleave(G, 0))
+        del s
+    return torch.stack(out)
+
+
+def error_stats(torch, got, exact) -> dict:
+    """Largest and mean |got - exact|, and the share toward zero."""
+    e = got.double() - exact
+    return dict(max=float(e.abs().max()), mean=float(e.abs().mean()),
+                toward_zero=float((-torch.sign(exact) * e).sum()
+                                  / e.abs().sum()))
 
 
 def main(argv=None) -> int:
@@ -83,7 +118,30 @@ def main(argv=None) -> int:
         ms=cuda_ms(torch, lambda: ops.flash_attention(q, k, v), ITERS),
         sdpa_ms=cuda_ms(torch, lambda: sdpa(q, k, v, is_causal=True,
                                             enable_gqa=True), ITERS))
-    del q, k, v
+    q, k, v = (t.float() for t in (q, k, v))
+    check_flash(torch, ops, ref, q, k, v)
+    res["flash_attention_f32"] = dict(
+        ms=cuda_ms(torch, lambda: ops.flash_attention(q, k, v), 5),
+        sdpa_ms=cuda_ms(torch, lambda: sdpa(q, k, v, is_causal=True,
+                                            enable_gqa=True), 5))
+    g32 = torch.Generator(device=dev)      # leaves gen's draws as they were
+    g32.manual_seed(1)
+    q, k, v = (torch.randn(s, generator=g32, device=dev) for s in (qs, ks, ks))
+    exact = attention_f64(torch, q, k, v)
+    res["flash_attention_f32"]["vs_f64"] = dict(
+        kernel=error_stats(torch, ops.flash_attention(q, k, v), exact),
+        plain=error_stats(torch, ref.flash_attention(q, k, v), exact))
+    del q, k, v, exact
+
+    q = torch.randn((1024, 100), generator=gen, device=dev)
+    x = torch.randn((262144, 100), generator=gen, device=dev)
+    _, share = check_l2dist(torch, ops, ref, q, x)
+    res["l2dist"] = dict(
+        err_share=share,
+        ms=cuda_ms(torch, lambda: ops.l2dist(q, x), 10 * ITERS // 4),
+        mm_ms=cuda_ms(torch, lambda: torch.mm(q, x.T), 10 * ITERS // 4))
+    del q, x
+    torch.cuda.empty_cache()
 
     tile, dp = 4096, 104
     xb = torch.randn((8 * tile, dp), generator=gen, device=dev)
