@@ -31,15 +31,20 @@ result line:
    bound is 3x their flops at the TF32 rate; the FP32 rate's figure is
    logged beside it and kept in the report (``fp32_bound_ms``), not in the
    kernels line, and l2dist's largest error is printed as a share of its
-   d2 limit.
+   d2 limit, beside its and the plain version's error against float64
+   (max, mean, share toward zero, and the share that moves q.x toward
+   zero).
    gather_dist and l2dist have no caller on a path; they are held at slice
    A's graph shapes and at the prefilter scan's and kernels_bench's widths;
    the float32 attention kernel at slice C's shape in float32. Edge shapes:
    bitset_dist with N % 4 != 0 at W = 1 and 33, fused_expand at an odd row
-   width (103 words) with ids out of range and NaN-like attr words.
-   fused_expand is timed with cold rows (COLD_SETS id batches in turn, more
-   rows than the L2 holds), as the beam finds them; its warm time is
-   printed beside it. bitset_dist's operations bound counts popcounts at
+   width (103 words) with ids out of range and NaN-like attr words,
+   gather_dist with single-value loads (d = 13, a table one element off 16
+   bytes, bf16 rows of 200 bytes), ids out of range and C = 600,000 (above
+   the 524,280 that its old grid allowed). fused_expand and gather_dist are
+   timed with cold rows (the same COLD_SETS id batches in turn, more rows
+   than the L2 holds), as the beam finds them; their warm times are
+   printed beside them. bitset_dist's operations bound counts popcounts at
    the card's popcount rate (SMs x 16 a clock x nvidia-smi's
    clocks.max.sm), not at the FP32 rate.
 4. Slice A, the main path at MSTuring's published width: msturing_subset
@@ -85,6 +90,8 @@ import argparse
 import dataclasses
 import itertools
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -111,6 +118,34 @@ LM_BF16_NOISE = 2              # bf16 checks: widths of bf16's own error
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def ptxas_report(report: str) -> list:
+    """(kernel, registers, bytes of spill stores) for each kernel function
+    in a ptxas ``-v`` report (``_build.PTXAS_LOG``), in its order; names
+    demangled, without return type or parameters, where ``c++filt`` is
+    found."""
+    rows, fn, spill = [], None, 0
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            rows.append((fn, int(m.group(1)), spill))
+            fn = None
+    tool = shutil.which("c++filt")
+    if tool and rows:
+        names = subprocess.run([tool], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True).stdout
+        rows = [(n.replace("(anonymous namespace)::", "").split("(")[0]
+                 .removeprefix("void "), regs, sp)
+                for n, (_, regs, sp) in zip(names.splitlines(), rows)]
+    return rows
 
 
 def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
@@ -216,16 +251,49 @@ def check_bitset(torch, ops, ref, a, b) -> float:
         for op in ("deficit", "xor"))
 
 
+def error_stats(torch, got, exact) -> dict:
+    """Largest and mean |got - exact|, and the share of the error that
+    points toward zero, sum(-sign(exact) * error) / sum(|error|): near 0
+    where every rounding is to nearest, near 1 where they truncate."""
+    e = got.double() - exact
+    return dict(max=float(e.abs().max()), mean=float(e.abs().mean()),
+                toward_zero=float((-torch.sign(exact) * e).sum()
+                                  / e.abs().sum()))
+
+
+def l2dist_vs_f64(torch, q, x, outs: dict) -> dict:
+    """Each l2dist output of ``outs`` (label -> [B, N]) against the same
+    distances in float64, as ``error_stats`` gives them, and beside them
+    ``dot_toward_zero``, the share of the error that moves q.x toward zero
+    (sign(q.x) * error, since d2 = |q|^2 + |x|^2 - 2 q.x): a truncating
+    accumulation of q.x shows there and not in the share of d2."""
+    qd, xd = q.double(), x.double()
+    dot = qd @ xd.T
+    exact = (torch.sum(qd * qd, -1)[:, None] + torch.sum(xd * xd, -1)[None]
+             - 2.0 * dot).clamp_min(0.0)
+    res = {}
+    for k, out in outs.items():
+        e = out.double() - exact
+        res[k] = dict(error_stats(torch, out, exact), dot_toward_zero=float(
+            (torch.sign(dot) * e).sum() / e.abs().sum()))
+    return res
+
+
 def check_l2dist(torch, ops, ref, q, x) -> tuple:
     """l2dist against its plain version within DTOL: (max error, its
-    largest share of the limit), the share printed."""
+    largest share of the limit, the kernel's and the plain version's
+    errors against float64), the share and the float64 figures printed."""
     got, want = ops.l2dist(q, x), ref.l2dist(q, x)
     scale = torch.sum(q * q, -1)[:, None] + torch.sum(x * x, -1)[None]
     label = f"l2dist {tuple(q.shape)}x{tuple(x.shape)}"
     err = check_d2(torch, label, got, want, scale)
     share = float(((got - want).abs() / (DTOL * scale)).max())
-    log(f"[kernels] {label}: largest error {share:.4f} of the d2 limit")
-    return err, share
+    f64 = l2dist_vs_f64(torch, q, x, {"kernel": got, "plain": want})
+    log(f"[kernels] {label}: largest error {share:.4f} of the d2 limit; "
+        "against float64 (max, mean, share toward zero, of q.x) " + ", ".join(
+            f"{k} {s['max']:.4g} {s['mean']:.4g} {s['toward_zero']:.3f} "
+            f"{s['dot_toward_zero']:.3f}" for k, s in f64.items()))
+    return err, share, f64
 
 
 def check_flash(torch, ops, ref, q, k, v) -> float:
@@ -360,9 +428,9 @@ def main(argv=None) -> int:
     t_build = time.perf_counter() - t0
     log(f"[build] {len(paths)} kernels in {t_build:.2f} s")
     for name, out in _build.PTXAS_LOG.items():
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+        for fn, regs, spill in ptxas_report(out):
+            log(f"[build] {name}: {fn}: {regs} registers, {spill} bytes of "
+                "spill stores")
     report["kernel_build_s"] = t_build
     for name, opcode in (("flash_attention", "HGMMA"), ("l2dist", "HGMMA"),
                          ("flash_attention_f32", "HGMMA"),
@@ -412,7 +480,6 @@ def main(argv=None) -> int:
     ids = torch.randint(0, N, (Bg, C), generator=gen, device=dev,
                         dtype=torch.int32)
     err = check_fused_expand(torch, ops, ref, lay.packed, ids, qg, qgn, D)
-    scale = lay.packed[ids.long(), D] + qgn[:, None]
     A = lay.n_attr_words
     # an odd row width (A = 2: 103 words, read a word at a time), ids out of
     # range and attr words that look like NaNs
@@ -443,7 +510,6 @@ def main(argv=None) -> int:
         f"({COLD_SETS} id batches in turn, {COLD_SETS * row_bytes / 1e6:.1f} "
         f"MB of rows against the {L2_BYTES / 1e6:.0f} MB L2), {fe_warm:.6f} "
         f"ms warm (one batch)")
-    del id_sets
     b, o = bound_ms(Bg * C * ((D + 1 + A) * 4 + 4 + 4 + A * 4)
                     + Bg * (D + 1) * 4, 2 * Bg * C * D)
     kernels["fused_expand"] = dict(
@@ -456,41 +522,71 @@ def main(argv=None) -> int:
             lay.packed, ids, qg, qgn, d=D), 10),
         bound_ms=b, bound_by=o, library_ms=None)
 
-    # gather_dist (no caller on a path): the graph group's expansion shapes
-    kg = ops.gather_dist(xb, ids, qg)
-    err = check_d2(torch, "gather_dist", kg, ref.gather_dist(xb, ids, qg),
-                   scale)
+    # gather_dist (no caller on a path): the graph group's expansion shapes,
+    # then edge shapes: single-value loads (d = 13, a table one element off
+    # 16 bytes, bf16 rows of 200 bytes), ids out of range, and C above the
+    # 524,280 that a grid of (B, C / 8) allowed
+    def check_gather(label, table, gids, gq):
+        rows = table[gids.long().clamp(0, table.shape[0] - 1)].float()
+        sc = torch.sum(rows * rows, -1) + torch.sum(gq * gq, -1)[:, None]
+        return check_d2(torch, f"gather_dist {label}",
+                        ops.gather_dist(table, gids, gq),
+                        ref.gather_dist(table, gids, gq), sc)
+
+    err = check_gather("main", xb, ids, qg)
+    ids_out = torch.randint(-1, n_odd + 1, (Bg, C), generator=gen_edge,
+                            device=dev, dtype=torch.int32)
+    shifted = torch.empty(n_odd * D + 1, device=dev)[1:].view(n_odd, D)
+    shifted.copy_(xb[:n_odd])
+    ids_big = torch.randint(-1, n_odd + 1, (1, 600_000), generator=gen_edge,
+                            device=dev, dtype=torch.int32)
+    for label, table, gids, gq in (
+            ("d=13", xb[:n_odd, :13].contiguous(), ids_out,
+             qg[:, :13].contiguous()),
+            ("shifted table", shifted, ids_out, qg),
+            ("bf16", xb[:n_odd].bfloat16(), ids_out, qg),
+            ("C=600000 d=4", xb[:n_odd, :4].contiguous(), ids_big,
+             qg[:1, :4].contiguous())):
+        err = max(err, check_gather(label, table, gids, gq))
+    del ids_out, shifted, ids_big
+    # cold rows, as for fused_expand (the same id batches), and warm
+    gd_cold = cold_ms(torch, [lambda s=s: ops.gather_dist(xb, s, qg)
+                              for s in id_sets], 50)
+    gd_warm = cuda_ms(torch, lambda: ops.gather_dist(xb, ids, qg), 50)
+    log(f"[kernels] gather_dist: {gd_cold:.6f} ms with cold rows (the same "
+        f"{COLD_SETS} id batches; fused_expand {fe_cold:.6f}), {gd_warm:.6f} "
+        f"ms warm (one batch)")
+    del id_sets
     b, o = bound_ms(Bg * C * (D * 4 + 4 + 4) + Bg * D * 4, 3 * Bg * C * D)
     kernels["gather_dist"] = dict(
         name="gather_dist", route="cuda",
         source="src/repro_torch/csrc/gather_dist.cu",
         replaces="src/repro/kernels/gather_dist.py:34",
         shape=f"xb[{N},{D}] ids[{Bg},{C}]", max_abs_err=err,
-        ms=cuda_ms(torch, lambda: ops.gather_dist(xb, ids, qg), 50),
+        ms=gd_cold, warm_ms=gd_warm,
         plain_ms=cuda_ms(torch, lambda: ref.gather_dist(xb, ids, qg), 10),
         bound_ms=b, bound_by=o, library_ms=None)
-    del kg
 
     # l2dist (no caller on a path): every query against a scan-sized slab
     # of slice A's rows, and kernels_bench's 256 x 8192 x 128
     xl = xb[:min(N, 262_144)]
 
-    err, share = check_l2dist(torch, ops, ref, q_all, xl)
+    err, share, f64 = check_l2dist(torch, ops, ref, q_all, xl)
     b, o, b32 = split_bound_ms((NQ * D + len(xl) * D + NQ * len(xl)) * 4,
                                2 * NQ * len(xl) * D)
     kernels["l2dist"] = dict(
         name="l2dist", route="cuda", source="src/repro_torch/csrc/l2dist.cu",
         replaces="src/repro/kernels/l2dist.py:44",
         shape=f"q[{NQ},{D}] xb[{len(xl)},{D}]", max_abs_err=err,
-        err_share=share,
+        err_share=share, vs_f64=f64,
         ms=cuda_ms(torch, lambda: ops.l2dist(q_all, xl), 10),
         plain_ms=cuda_ms(torch, lambda: ref.l2dist(q_all, xl), 3),
         bound_ms=b, bound_by=o, fp32_bound_ms=b32,
         library_ms=cuda_ms(torch, lambda: torch.mm(q_all, xl.T), 10))
     qb8 = torch.randn((256, 128), generator=gen, device=dev)
     xb8 = torch.randn((8192, 128), generator=gen, device=dev)
-    err8, share8 = check_l2dist(torch, ops, ref, qb8, xb8)
-    bench = dict(max_abs_err=err8, err_share=share8,
+    err8, share8, f64_8 = check_l2dist(torch, ops, ref, qb8, xb8)
+    bench = dict(max_abs_err=err8, err_share=share8, vs_f64=f64_8,
                  ms=cuda_ms(torch, lambda: ops.l2dist(qb8, xb8), 50),
                  library_ms=cuda_ms(torch, lambda: torch.mm(qb8, xb8.T), 50))
     bench["bound_ms"], bench["bound_by"], bench["fp32_bound_ms"] = \

@@ -30,9 +30,15 @@
 // O on the CUDA cores, rounding to nearest. On an H100 at the LM's prefill
 // shape that took the largest error against float64 from 1.6e-5 to
 // 1.1e-6, under the plain float32 version's 1.6e-6, for about 4% more
-// time (PERF.md). The mma.sync kernel (D = 256) still accumulates both
-// products on the tensor cores. Softmax runs in f32 on the CUDA cores,
-// exp as the SFU's 2^x of s log2(e) - m log2(e).
+// time (PERF.md). The mma.sync kernel (D = 256) does the same: two k8
+// steps of S and one kv tile of P V (6 instructions each) from zero, P V
+// two dimension tiles at a time, added as O corr + P V in one rounding,
+// with the passes of independent products issued side by side
+// (mma3_m16n8k8). At q [1, 16, 2048, 256] on an H100 80GB HBM3 (700 W)
+// that took its largest error against float64 from 6.9e-6 to 6.8e-7
+// (plain float32 1.5e-6) at the same time; issued a product at a time it
+// cost 8% (PERF.md). Softmax runs in f32 on the CUDA cores, exp as the
+// SFU's 2^x of s log2(e) - m log2(e).
 //
 // Bound on the H100: operations. 4 B H Tq Tk D flops (halved by the causal
 // mask) over 495 TFLOP/s TF32, times 3 for the passes: 1.67 ms at the LM's
@@ -297,15 +303,15 @@ __device__ __forceinline__ void wg_store_kv(const WgRegs<kD>& r,
   }
 }
 
-// The pre-pass: kv tile blockIdx.x of kv head blockIdx.y, split once into
-// its shared-memory image (img: [B*Hkv][n_tiles][kBuf] bytes), which every
-// block that reads the tile then copies as it stands.
+// The pre-pass: kv tile blockIdx.x of kv head h0 + blockIdx.y, split once
+// into its shared-memory image (img: [B*Hkv][n_tiles][kBuf] bytes), which
+// every block that reads the tile then copies as it stands.
 template <typename T, int kD>
 __global__ void __launch_bounds__(256)
 kv_split(const T* __restrict__ k, const T* __restrict__ v,
-         uint8_t* __restrict__ img, int Tk, int D) {
+         uint8_t* __restrict__ img, int Tk, int D, int h0) {
   using L = WgLayout<kD>;
-  const int h = blockIdx.y;
+  const int h = h0 + blockIdx.y;
   const uintptr_t a4 = 4 * sizeof(T);
   const bool vec = D % 4 == 0 && reinterpret_cast<uintptr_t>(k) % a4 == 0;
   WgRegs<kD> r;
@@ -319,7 +325,7 @@ __global__ void __launch_bounds__(256, 1)
 flash_attention_wgmma(const T* __restrict__ q,
                       const uint8_t* __restrict__ img, T* __restrict__ out,
                       int H, int G, int Tq, int Tk, int D, int causal,
-                      float scale) {
+                      float scale, int h0) {
   using L = WgLayout<kD>;
   constexpr int kBQ = L::kBQ, kBK = L::kBK, kKP = L::kKP, kNT = kBK / 8;
   constexpr int kSG = 2;   // k8 steps of S summed on the tensor cores
@@ -330,7 +336,7 @@ flash_attention_wgmma(const T* __restrict__ q,
 
   const int tid = threadIdx.x, wg = tid / 128;
   const int w = (tid % 128) / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-  const int bh = blockIdx.y;
+  const int bh = h0 + blockIdx.y;   // see for_head_chunks
   const int kvh = (bh / H) * (H / G) + (bh % H) / G;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
   const T* qp = q + (size_t)bh * Tq * D;
@@ -546,12 +552,15 @@ template <typename T, int kD>
 __global__ void __launch_bounds__(MmaLayout<kD>::kThreads, 1)
 flash_attention_mma(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, T* __restrict__ out, int H,
-                    int G, int Tq, int Tk, int D, int causal, float scale) {
+                    int G, int Tq, int Tk, int D, int causal, float scale,
+                    int h0) {
   using L = MmaLayout<kD>;
   constexpr int kBQ = L::kBQ, kBK = L::kBK, kThreads = L::kThreads;
   constexpr int kQS = L::kQS, kKS = L::kKS, kVS = L::kVS;
   constexpr int kNT = kBK / 8;   // key tiles of 8 in a kv tile
   constexpr int kDT = kD / 8;    // dimension tiles of 8
+  constexpr int kSG = 2;         // k8 steps of S summed on the tensor cores
+  constexpr int kDG = 2;         // dimension tiles of P V issued together
   extern __shared__ uint4 smem[];
   float* qs = reinterpret_cast<float*>(smem);              // [kBQ][kQS]
   uint4* ks = smem + kBQ * kQS / 4;                        // [2][kK]
@@ -559,7 +568,7 @@ flash_attention_mma(const T* __restrict__ q, const T* __restrict__ k,
 
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const int bh = blockIdx.y;
+  const int bh = h0 + blockIdx.y;   // see for_head_chunks
   const int kvh = (bh / H) * (H / G) + (bh % H) / G;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
   const T* qp = q + (size_t)bh * Tq * D;
@@ -607,55 +616,70 @@ flash_attention_mma(const T* __restrict__ q, const T* __restrict__ k,
       const uint4* kb = ks + (kt & 1) * L::kK;
       const uint4* vb = vs + (kt & 1) * L::kV;
 
-      // S = (q scale) K^T
+      // S = (q scale) K^T: each kSG k8 steps' passes from a fresh
+      // accumulator st, added into s on the CUDA cores
       float s[4 * kNT];
 #pragma unroll
       for (int i = 0; i < 4 * kNT; ++i) s[i] = 0.0f;
-#pragma unroll 4
-      for (int kk = 0; kk < kDT; ++kk) {
-        const float2 qa =
-            *reinterpret_cast<const float2*>(qs + lr * kQS + 8 * kk + 2 * t);
-        const float2 qb = *reinterpret_cast<const float2*>(
-            qs + (lr + 8) * kQS + 8 * kk + 2 * t);
-        uint32_t a_hi[4], a_lo[4];
-        split(qa.x, a_hi[0], a_lo[0]);
-        split(qb.x, a_hi[1], a_lo[1]);
-        split(qa.y, a_hi[2], a_lo[2]);
-        split(qb.y, a_hi[3], a_lo[3]);
+#pragma unroll 2
+      for (int k1 = 0; k1 < kDT; k1 += kSG) {
+        float st[4 * kNT];
 #pragma unroll
-        for (int j = 0; j < kNT; ++j) {
-          const uint4 f = kb[(8 * j + g) * kKS + 4 * kk + t];
-          const uint32_t b_hi[2] = {f.x, f.y}, b_lo[2] = {f.z, f.w};
-          mma3_m16n8k8(s + 4 * j, a_hi, a_lo, b_hi, b_lo);
+        for (int i = 0; i < 4 * kNT; ++i) st[i] = 0.0f;
+#pragma unroll
+        for (int kk = k1; kk < k1 + kSG; ++kk) {
+          const float2 qa = *reinterpret_cast<const float2*>(
+              qs + lr * kQS + 8 * kk + 2 * t);
+          const float2 qb = *reinterpret_cast<const float2*>(
+              qs + (lr + 8) * kQS + 8 * kk + 2 * t);
+          uint32_t a_hi[4], a_lo[4];
+          split(qa.x, a_hi[0], a_lo[0]);
+          split(qb.x, a_hi[1], a_lo[1]);
+          split(qa.y, a_hi[2], a_lo[2]);
+          split(qb.y, a_hi[3], a_lo[3]);
+          uint4 f[kNT];
+#pragma unroll
+          for (int j = 0; j < kNT; ++j)
+            f[j] = kb[(8 * j + g) * kKS + 4 * kk + t];
+          mma3_m16n8k8<kNT>(st, a_hi, a_lo, f);
         }
+#pragma unroll
+        for (int i = 0; i < 4 * kNT; ++i) s[i] += st[i];
       }
 
       float corr[2];
       softmax_tile<kNT>(s, m, l, corr, ra, k0, t, Tk, causal,
                         k0 + kBK > Tk || (causal && k0 + kBK - 1 > wrow0));
-#pragma unroll
-      for (int i = 0; i < kDT; ++i) {
-        o[4 * i] *= corr[0];
-        o[4 * i + 1] *= corr[0];
-        o[4 * i + 2] *= corr[1];
-        o[4 * i + 3] *= corr[1];
-      }
 
-      // O += P V: s[4j..] is the A fragment of key tile j as it stands (k
-      // index t = key 8j + 2t, t + 4 = key 8j + 2t + 1)
+      // O = O corr + P V: the kv tile's P V from a fresh accumulator pv,
+      // kDG dimension tiles at a time, added on the CUDA cores. s[4j..] is
+      // the A fragment of key tile j as it stands (k index t = key 8j +
+      // 2t, t + 4 = key 8j + 2t + 1)
+      uint32_t p_hi[kNT][4], p_lo[kNT][4];
 #pragma unroll
       for (int j = 0; j < kNT; ++j) {
-        uint32_t p_hi[4], p_lo[4];
-        split(s[4 * j], p_hi[0], p_lo[0]);
-        split(s[4 * j + 2], p_hi[1], p_lo[1]);
-        split(s[4 * j + 1], p_hi[2], p_lo[2]);
-        split(s[4 * j + 3], p_hi[3], p_lo[3]);
-        const uint4* v0 = vb + (4 * j + t) * kVS + g;
+        split(s[4 * j], p_hi[j][0], p_lo[j][0]);
+        split(s[4 * j + 2], p_hi[j][1], p_lo[j][1]);
+        split(s[4 * j + 1], p_hi[j][2], p_lo[j][2]);
+        split(s[4 * j + 3], p_hi[j][3], p_lo[j][3]);
+      }
 #pragma unroll
-        for (int i = 0; i < kDT; ++i) {
-          const uint4 f = v0[8 * i];
-          const uint32_t b_hi[2] = {f.x, f.y}, b_lo[2] = {f.z, f.w};
-          mma3_m16n8k8(o + 4 * i, p_hi, p_lo, b_hi, b_lo);
+      for (int i0 = 0; i0 < kDT; i0 += kDG) {
+        float pv[4 * kDG];
+#pragma unroll
+        for (int e = 0; e < 4 * kDG; ++e) pv[e] = 0.0f;
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+          uint4 f[kDG];
+#pragma unroll
+          for (int u = 0; u < kDG; ++u)
+            f[u] = vb[(4 * j + t) * kVS + g + 8 * (i0 + u)];
+          mma3_m16n8k8<kDG>(pv, p_hi[j], p_lo[j], f);
+        }
+#pragma unroll
+        for (int e = 0; e < 4 * kDG; ++e) {
+          const int i = 4 * i0 + e;   // o[i]: row r + 8 (e % 4 / 2)
+          o[i] = fmaf(o[i], corr[(e & 3) >> 1], pv[e]);
         }
       }
     }
@@ -665,6 +689,22 @@ flash_attention_mma(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();   // the next tile is in; this one is free
   }
   write_rows<T, kDT>(out + (size_t)bh * Tq * D, o, l, ra, t, Tq, D);
+}
+
+// Launches over `heads` heads in chunks of at most 65535, the cap of grid
+// y, which holds the head (h0 + blockIdx.y): launch(h0, heads in the
+// chunk) enqueues one chunk. Up to 65535 heads take one launch, as a grid
+// of (q tiles, B * H) did; each further 65535 take one more. The kernels
+// only add h0, so their registers stay as they were.
+template <typename F>
+int for_head_chunks(int heads, F&& launch) {
+  constexpr int kMaxY = 65535;
+  for (int h0 = 0; h0 < heads; h0 += kMaxY) {
+    launch(h0, heads - h0 < kMaxY ? heads - h0 : kMaxY);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 template <int kD>
@@ -680,21 +720,24 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   using L = WgLayout<kD>;
   const int n_tiles = (Tk + L::kBK - 1) / L::kBK;
   if (n_tiles > 0) {
-    kv_split<T, kD><<<dim3(n_tiles, B * Hkv), L::kThreads, 0, stream>>>(
-        static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<uint8_t*>(img), Tk, D);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+    const int rc = for_head_chunks(B * Hkv, [&](int h0, int n) {
+      kv_split<T, kD><<<dim3(n_tiles, n), L::kThreads, 0, stream>>>(
+          static_cast<const T*>(k), static_cast<const T*>(v),
+          static_cast<uint8_t*>(img), Tk, D, h0);
+    });
+    if (rc != 0) return rc;
   }
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_wgmma<T, kD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((Tq + L::kBQ - 1) / L::kBQ, B * H);
-  flash_attention_wgmma<T, kD><<<grid, L::kThreads, L::kSmem, stream>>>(
-      static_cast<const T*>(q), static_cast<const uint8_t*>(img),
-      static_cast<T*>(out), H, H / Hkv, Tq, Tk, D, causal, scale);
-  return static_cast<int>(cudaGetLastError());
+  const int n_qt = (Tq + L::kBQ - 1) / L::kBQ;
+  return for_head_chunks(B * H, [&](int h0, int n) {
+    flash_attention_wgmma<T, kD><<<dim3(n_qt, n), L::kThreads, L::kSmem,
+                                   stream>>>(
+        static_cast<const T*>(q), static_cast<const uint8_t*>(img),
+        static_cast<T*>(out), H, H / Hkv, Tq, Tk, D, causal, scale, h0);
+  });
 }
 
 template <typename T>
@@ -706,12 +749,14 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, int B,
       flash_attention_mma<T, 256>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((Tq + L::kBQ - 1) / L::kBQ, B * H);
-  flash_attention_mma<T, 256><<<grid, L::kThreads, L::kSmem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), H, H / Hkv, Tq, Tk, D,
-      causal, scale);
-  return static_cast<int>(cudaGetLastError());
+  const int n_qt = (Tq + L::kBQ - 1) / L::kBQ;
+  return for_head_chunks(B * H, [&](int h0, int n) {
+    flash_attention_mma<T, 256><<<dim3(n_qt, n), L::kThreads, L::kSmem,
+                                  stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(out), H, H / Hkv, Tq, Tk,
+        D, causal, scale, h0);
+  });
 }
 
 template <typename T>

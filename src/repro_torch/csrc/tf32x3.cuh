@@ -92,15 +92,32 @@ __device__ __forceinline__ void mma_m16n8k8(float* c, const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// The three passes of one split product, the small terms first.
+// c[4u .. 4u+3] += a b_u for u < G, each a split product in three passes,
+// the small terms first (lo.hi, hi.lo, hi.hi), with b_u the (hi, hi, lo,
+// lo) quad of a thread's B fragments. The passes go pass by pass across
+// the G products: mma.sync is volatile asm, which keeps its written order,
+// so this order puts independent instructions next to each other where
+// one product at a time would chain three that wait on each other.
+template <int G>
 __device__ __forceinline__ void mma3_m16n8k8(float* c,
                                              const uint32_t (&a_hi)[4],
                                              const uint32_t (&a_lo)[4],
-                                             const uint32_t (&b_hi)[2],
-                                             const uint32_t (&b_lo)[2]) {
-  mma_m16n8k8(c, a_lo, b_hi);
-  mma_m16n8k8(c, a_hi, b_lo);
-  mma_m16n8k8(c, a_hi, b_hi);
+                                             const uint4 (&b)[G]) {
+#pragma unroll
+  for (int u = 0; u < G; ++u) {
+    const uint32_t b_hi[2] = {b[u].x, b[u].y};
+    mma_m16n8k8(c + 4 * u, a_lo, b_hi);
+  }
+#pragma unroll
+  for (int u = 0; u < G; ++u) {
+    const uint32_t b_lo[2] = {b[u].z, b[u].w};
+    mma_m16n8k8(c + 4 * u, a_hi, b_lo);
+  }
+#pragma unroll
+  for (int u = 0; u < G; ++u) {
+    const uint32_t b_hi[2] = {b[u].x, b[u].y};
+    mma_m16n8k8(c + 4 * u, a_hi, b_hi);
+  }
 }
 
 // ---- wgmma (sm_90a): both operands K-major in shared memory.

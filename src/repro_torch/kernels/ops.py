@@ -155,15 +155,15 @@ def gather_dist(xb: torch.Tensor, ids: torch.Tensor,
                 q: torch.Tensor) -> torch.Tensor:
     """Row-granular fused gather + distance: xb [N, d] f32 or bf16, ids
     int32 [B, C] (clipped into [0, N)), q [B, d] -> f32 [B, C], the
-    difference form sum_k (xb[ids[b, c], k] - q[b, k])^2."""
+    difference form sum_k (xb[ids[b, c], k] - q[b, k])^2. Any d, B and C;
+    on the card rows that start off a 16-byte boundary take the kernel's
+    single-value loads."""
     if not _on_card(xb, ids, q):
         return ref.gather_dist(xb, ids, q)
     N, d = xb.shape
     B, C = ids.shape
     if N == 0:
         raise ValueError("xb has no rows to gather")
-    if d * 4 > 48 * 1024:
-        raise ValueError(f"d={d} exceeds the kernel's shared query buffer")
     if xb.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"xb: dtype {xb.dtype}, expected float32 or bfloat16")
     _expect(xb, "xb", xb.dtype, (N, d))
@@ -216,9 +216,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (``flash_attention``, counted under that name); float32, and bf16 of
     another width, runs both products as three TF32 passes over hi and lo
     halves (``flash_attention_f32``: wgmma up to D = 128, mma.sync above),
-    after a pre-pass that splits K and V once into scratch; up to D = 128
-    short runs of instructions are summed on the CUDA cores, which keeps
-    its error against float64 at the plain float32 version's.
+    after a pre-pass that splits K and V once into scratch (up to D =
+    128); both kernels sum short runs of instructions on the CUDA cores,
+    which keeps their error against float64 at or under the plain float32
+    version's. Any B * H: the kernel takes heads in chunks of 65535.
     """
     if not _on_card(q, k, v):
         return ref.flash_attention(q, k, v, causal=causal)
@@ -247,8 +248,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         _launch("flash_attention", q, k, v, out, B, H, Hkv, Tq, Tk, D,
                 int(causal), scale)
     else:
-        if B * H > 65535:
-            raise ValueError(f"B * H = {B * H} exceeds the grid's y extent")
         scratch = torch.empty(
             _scratch_bytes("flash_attention_f32", B, Hkv, Tk, D),
             dtype=torch.uint8, device=q.device)

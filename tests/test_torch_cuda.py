@@ -160,18 +160,58 @@ def test_cuda_bitset_dist_shapes(sm90, op, W, N, B):
         assert torch.equal(got, ref.bitset_dist(a, b, op=op))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_gather_dist_matches_plain(sm90, dtype):
-    rng = np.random.default_rng(6)
-    xb = _t(rng.normal(size=(5000, 100)).astype(np.float32)).to(sm90, dtype)
-    ids = _t(rng.integers(-50, 5050, (300, 48)).astype(np.int32)).to(sm90)
-    q = _t(rng.normal(size=(300, 100)).astype(np.float32)).to(sm90)
+def _check_gather_dist(xb, ids, q):
     before = ops.LAUNCHES["gather_dist"]
     got = ops.gather_dist(xb, ids, q)
     assert ops.LAUNCHES["gather_dist"] == before + 1
     want = ref.gather_dist(xb, ids, q)
+    assert got.shape == ids.shape and bool(torch.isfinite(got).all())
     assert bool(((got - want).abs() <= 1e-5 * want + 1e-6).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,C,N,d,shifted", [
+    (300, 48, 5000, 100, False),
+    (64, 1, 500, 100, False),        # ragged C: a block spans many lanes
+    (64, 7, 500, 100, False),
+    (64, 143, 500, 100, False),
+    (37, 50, 700, 13, False),        # d % 4 != 0: single-value loads
+    (37, 50, 700, 100, True),        # a table one element off 16 bytes
+    (40, 33, 600, 128, False),       # bf16 rows of 16-byte loads
+    (40, 33, 600, 136, False),       # a second, partial pass of the row
+    (3, 2, 40, 12289, False),        # wider than the old shared query
+    (1, 144, 5000, 100, False),      # one query lane
+])
+def test_cuda_gather_dist_matches_plain(sm90, dtype, B, C, N, d, shifted):
+    """Ragged C, rows that start off a 16-byte boundary (odd d, d % 8 != 0
+    in bf16, or a table that starts one element into its allocation), rows
+    read in several passes, and ids of -1 and N (clamped to the first and
+    last row)."""
+    rng = np.random.default_rng(B * 1000 + C + d)
+    xb = _t(rng.normal(size=(N, d)).astype(np.float32)).to(sm90, dtype)
+    if shifted:
+        table = torch.empty(N * d + 1, dtype=dtype, device=sm90)[1:]
+        xb = table.view(N, d).copy_(xb)
+    ids = rng.integers(-50, N + 50, (B, C)).astype(np.int32)
+    ids[0, 0], ids[-1, -1] = -1, N
+    q = _t(rng.normal(size=(B, d)).astype(np.float32)).to(sm90)
+    _check_gather_dist(xb, _t(ids).to(sm90), q)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_gather_dist_large_c(sm90, dtype):
+    """C above 524,280, where a grid of (B, ceil(C / 8)) ran out of grid
+    y."""
+    g = torch.Generator(device=sm90)
+    g.manual_seed(0)
+    N, d, C = 1000, 4, 600_000
+    xb = torch.randn((N, d), generator=g, device=sm90).to(dtype)
+    ids = torch.randint(-1, N + 1, (2, C), generator=g, device=sm90,
+                        dtype=torch.int32)
+    q = torch.randn((2, d), generator=g, device=sm90)
+    _check_gather_dist(xb, ids, q)
 
 
 @pytest.mark.gpu
@@ -247,6 +287,21 @@ def test_cuda_flash_attention_matches_plain(sm90, dtype, D, B, H, Hkv, Tq,
     k = torch.randn((B, Hkv, Tk, D), generator=g, device=sm90).to(dtype)
     v = torch.randn((B, Hkv, Tk, D), generator=g, device=sm90).to(dtype)
     _check_flash(q, k, v, causal)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [16, 256])
+@pytest.mark.parametrize("B,H,Hkv", [(1, 65537, 65537), (3, 21846, 10923)])
+def test_cuda_flash_attention_f32_many_heads(sm90, D, B, H, Hkv):
+    """B * H above 65535, which a grid of (q tiles, B * H) could not
+    launch: the wgmma kernel and its pre-pass over B * Hkv heads (D = 16)
+    and the mma.sync kernel (D = 256)."""
+    g = torch.Generator(device=sm90)
+    g.manual_seed(2)
+    q = torch.randn((B, H, 3, D), generator=g, device=sm90)
+    k = torch.randn((B, Hkv, 3, D), generator=g, device=sm90)
+    v = torch.randn((B, Hkv, 3, D), generator=g, device=sm90)
+    _check_flash(q, k, v, True)
 
 
 @pytest.mark.gpu

@@ -152,9 +152,13 @@ def _bf16_np(a):
     return np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)
 
 
+# d = 13 and 12300 are the widths the CUDA kernel takes with single-value
+# loads and in many passes (wider than its old 48 KiB query buffer);
+# allclose at rtol 1e-5, atol 1e-4: another float summation order
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,C,N,d", [(4, 8, 64, 16), (16, 32, 200, 64),
-                                     (2, 5, 33, 100)])
+                                     (2, 5, 33, 100), (2, 3, 40, 13),
+                                     (2, 3, 20, 12300)])
 def test_gather_dist_plain_matches_reference(B, C, N, d, dtype):
     rng = np.random.default_rng(6)
     xb = rng.normal(size=(N, d)).astype(np.float32)
@@ -171,6 +175,24 @@ def test_gather_dist_plain_matches_reference(B, C, N, d, dtype):
     oracle = rref.gather_dist_ref(xb, np.clip(ids, 0, N - 1), q)
     np.testing.assert_allclose(got.numpy(), np.asarray(oracle), rtol=1e-5,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_dist_takes_wide_rows_on_the_cpu(dtype):
+    """d above 12288 (the old kernel's 48 KiB query buffer): the wrapper
+    takes it, runs the plain version on CPU tensors and counts no launch;
+    the sum matches one in float64."""
+    rng = np.random.default_rng(8)
+    N, d = 10, 12289
+    xb = _t(rng.normal(size=(N, d)).astype(np.float32)).to(dtype)
+    q = rng.normal(size=(2, d)).astype(np.float32)
+    ids = np.array([[0, 9, -1], [3, 10, 4]], np.int32)
+    ops.reset_launches()
+    got = ops.gather_dist(xb, _t(ids), _t(q))
+    assert ops.LAUNCHES["gather_dist"] == 0
+    rows = xb.double().numpy()[np.clip(ids, 0, N - 1)]
+    want = ((rows - q.astype(np.float64)[:, None]) ** 2).sum(-1)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

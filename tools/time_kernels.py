@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time six of the port's kernels on one H100: flash_attention (bf16 and
-float32), gather_dist_tile, fused_expand, bitset_dist and l2dist.
+"""Time the port's kernels on one H100: flash_attention (bf16 and
+float32), gather_dist_tile, fused_expand, gather_dist, bitset_dist and
+l2dist.
 
     python3 tools/time_kernels.py [--src DIR] [--lanes B [B ...]]
                                   [--widths W [W ...]]
@@ -39,12 +40,21 @@ timed ones are bf16 values, whose lo halves are 0) against the same
 attention evaluated in float64, beside the plain version's: the largest
 and mean |error| and the share of the error that points toward zero,
 sum(-sign(exact) * error) / sum(|error|), which is near 0 where every
-rounding is to nearest and near 1 where they truncate. l2dist on q
-[1024, 100] against xb [262144, 100] (every
-query of slice A against a scan-sized slab), beside one ``torch.mm`` of
-the same product with TF32 off, within DTOL (its largest error's share of
-the limit is printed with its times).
-Prints nvidia-smi's name and power limit, then one JSON line.
+rounding is to nearest and near 1 where they truncate. The same timing
+and float64 comparison run at head_dim 256 (q [1, 16, 2048, 256], k/v [1,
+8, 2048, 256], drawn in float32, causal), the mma.sync kernel. l2dist on
+q [1024, 100] against xb [262144, 100] drawn in float32 (every query of
+slice A against a scan-sized slab), beside one ``torch.mm`` of the same
+product with TF32 off, within DTOL (its largest error's share of the limit
+is printed with its times), and against float64 beside the plain version
+(``chip_smoke.l2dist_vs_f64``: the same three figures, and the share of
+the error that moves q.x toward zero).
+gather_dist runs on xb [1000000, 100] f32 with the fused_expand id batches
+(ids [315, 144]), cold (the batches in turn) and warm, beside a cold
+``index_select`` of the same rows as the bytes yardstick (not the same
+function).
+Prints ptxas's register and spill lines of the libraries it built,
+nvidia-smi's name and power limit, then one JSON line.
 """
 from __future__ import annotations
 
@@ -58,8 +68,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 from chip_smoke import (COLD_SETS, check_bitset,  # noqa: E402
-                        check_flash, check_fused_expand, check_l2dist,
-                        check_scan_tile, cold_ms, cuda_ms)
+                        check_d2, check_flash, check_fused_expand,
+                        check_l2dist, check_scan_tile, cold_ms, cuda_ms,
+                        error_stats, ptxas_report)
 
 ITERS = 20
 
@@ -76,14 +87,6 @@ def attention_f64(torch, q, k, v):
                    @ v[b].double().repeat_interleave(G, 0))
         del s
     return torch.stack(out)
-
-
-def error_stats(torch, got, exact) -> dict:
-    """Largest and mean |got - exact|, and the share toward zero."""
-    e = got.double() - exact
-    return dict(max=float(e.abs().max()), mean=float(e.abs().mean()),
-                toward_zero=float((-torch.sign(exact) * e).sum()
-                                  / e.abs().sum()))
 
 
 def main(argv=None) -> int:
@@ -103,6 +106,10 @@ def main(argv=None) -> int:
     from repro_torch.core.filters import onehot_words, pack_bits
     from repro_torch.kernels import _build, ops, ref
     _build.build_all()
+    for name, out in _build.PTXAS_LOG.items():
+        for fn, regs, spill in ptxas_report(out):
+            print(f"[build] {name}: {fn}: {regs} registers, {spill} bytes "
+                  "of spill stores")
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev)
@@ -132,12 +139,24 @@ def main(argv=None) -> int:
         kernel=error_stats(torch, ops.flash_attention(q, k, v), exact),
         plain=error_stats(torch, ref.flash_attention(q, k, v), exact))
     del q, k, v, exact
+    # head_dim 256: the mma.sync kernel
+    q, k, v = (torch.randn(s, generator=g32, device=dev)
+               for s in ((1, 16, 2048, 256), (1, 8, 2048, 256),
+                         (1, 8, 2048, 256)))
+    check_flash(torch, ops, ref, q, k, v)
+    exact = attention_f64(torch, q, k, v)
+    res["flash_attention_f32_d256"] = dict(
+        ms=cuda_ms(torch, lambda: ops.flash_attention(q, k, v), ITERS),
+        vs_f64=dict(
+            kernel=error_stats(torch, ops.flash_attention(q, k, v), exact),
+            plain=error_stats(torch, ref.flash_attention(q, k, v), exact)))
+    del q, k, v, exact
 
     q = torch.randn((1024, 100), generator=gen, device=dev)
     x = torch.randn((262144, 100), generator=gen, device=dev)
-    _, share = check_l2dist(torch, ops, ref, q, x)
+    _, share, f64 = check_l2dist(torch, ops, ref, q, x)
     res["l2dist"] = dict(
-        err_share=share,
+        err_share=share, vs_f64=f64,
         ms=cuda_ms(torch, lambda: ops.l2dist(q, x), 10 * ITERS // 4),
         mm_ms=cuda_ms(torch, lambda: torch.mm(q, x.T), 10 * ITERS // 4))
     del q, x
@@ -166,7 +185,7 @@ def main(argv=None) -> int:
                          dtype=torch.int32)
     packed = torch.cat([x, (x * x).sum(-1, keepdim=True),
                         attr.view(torch.float32)], dim=1)
-    del x, attr
+    del attr
     q = torch.randn((B, d), generator=gen, device=dev)
     qn = (q * q).sum(-1)
     id_sets = [torch.randint(0, n, (B, C), generator=gen, device=dev,
@@ -189,7 +208,21 @@ def main(argv=None) -> int:
         contiguous_copy_cold_ms=cold_ms(
             torch, [lambda s=s: slab_out.copy_(s) for s in slabs],
             10 * ITERS))
-    del packed, id_sets, flat, slabs, slab_out
+    del packed, slabs, slab_out
+    # gather_dist on the same rows without the norm and attr word
+    rows = x[id_sets[0].long()]
+    check_d2(torch, "gather_dist", ops.gather_dist(x, id_sets[0], q),
+             ref.gather_dist(x, id_sets[0], q),
+             (rows * rows).sum(-1) + qn[:, None])
+    res["gather_dist"] = dict(
+        cold_ms=cold_ms(torch, [lambda s=s: ops.gather_dist(x, s, q)
+                                for s in id_sets], 10 * ITERS),
+        warm_ms=cuda_ms(torch, lambda: ops.gather_dist(x, id_sets[0], q),
+                        10 * ITERS),
+        index_select_cold_ms=cold_ms(
+            torch, [lambda s=s: torch.index_select(x, 0, s) for s in flat],
+            10 * ITERS))
+    del x, rows, id_sets, flat
 
     def words(shape):
         return torch.randint(0, 2 ** 32, shape, generator=gen, device=dev,
