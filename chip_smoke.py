@@ -58,11 +58,37 @@ result line:
    launch count of each of the three kernels of this path in that run must
    be above 0, and the graph-routed queries' recall@10 against the exact
    scan at least 0.80.
-5. Slice B, the Boolean call site of the deficit kernel: msturing_bool
+5. Slice D, int8 serving and the streaming index over slice A's built
+   index (no rebuild). int8: ``search_auto(..., dtype="int8")`` in the
+   fused and the default layout; the graph-routed recall@10 against slice
+   A's exact scan at least 0.80 in each (printed beside the f32 recall),
+   the prefilter ids equal to it, and ``fused_expand`` launched in the
+   fused run; ``fused_expand`` on the int8 lanes (codes widened to f32, the
+   query folded by the scale) against its plain version at the graph
+   group's shapes, timed cold (the ``int8`` record of its kernel report);
+   ``quantize_int8`` on 65,536 rows equal on the card and the CPU, bit for
+   bit. Streaming: ``StreamingJAGIndex`` over the index (compact_frac 0.25,
+   so nothing compacts by itself) takes 20,000 rows (2% of N) in 4 batches
+   of 5,000, drawn with their own generator (seed 1): slice A rows at
+   random ids plus Gaussian noise of 0.1x the per-dim std, and 30
+   Bernoulli(1/2) subset bits. ``search_auto(layout="fused")`` over base +
+   delta: prefilter ids equal ``exact_filtered_knn`` over the 1,020,000
+   concatenated rows, graph recall at least 0.80 against it, every
+   realized route ends in ``+delta``, the delta scan alone launches
+   ``gather_dist_tile`` and ``bitset_dist``, and ``gather_dist_tile`` on
+   the delta's padded last block (tile 4096) is bit-exact with its plain
+   version. ``compact()`` (timed): 1,020,000 graph rows, every inserted row
+   at least R / 8 edges, the extended f32 layout equal to ``build_layout``
+   over the concatenated rows bit for bit; then the same search with the
+   delta empty (prefilter exact, graph recall at least 0.80, inserted rows
+   among the graph route's ids) and ``search_int8``, whose int8 layout is
+   rebuilt over 1,020,000 rows. QPS per route of each served batch is
+   printed beside slice A's; no gate.
+6. Slice B, the Boolean call site of the deficit kernel: msturing_bool
    (N = 100,000, 15 variables) through the prefilter scan on the card with
    the kernels, whose ids must equal the same scan's through the plain
    versions.
-6. Slice C, dense-LM serving: qwen3-1.7b at its published width and depth
+7. Slice C, dense-LM serving: qwen3-1.7b at its published width and depth
    (28 layers, d_model 2048, 16 heads, 8 kv heads, head_dim 128, vocab
    151,936), random weights from ``--seed`` on the card, matrices kept in
    bf16 for serving. 4 requests of 4,096 prompt tokens (LM_SHAPES
@@ -359,6 +385,275 @@ def profile_main_path(torch, run, trace_path: str) -> dict:
     for r in out["top"]:
         log(f"[profile]   {r['device_ms']:9.3f} ms {r['calls']:6d}x "
             f"{r['name']}")
+    return out
+
+
+def run_slice_d(torch, np, idx, ds, q_all, gt, f32_recall, f32_qps, kernels,
+                K, LS, MI) -> dict:
+    """Slice D over slice A's built index: int8 serving, then streaming
+    (inserts, merged search, compaction, search after it). Every gate
+    raises; returns the phase's report."""
+    from repro_torch.core.filters import subset_table
+    from repro_torch.core.ground_truth import exact_filtered_knn
+    from repro_torch.core.quantized import quantize_int8
+    from repro_torch.core.recall import recall_at_k
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serve.layout import build_layout
+    from repro_torch.stream import StreamingJAGIndex
+
+    dev = idx.device
+    N, D = idx.xb.shape
+    R = idx.cfg.degree
+    out = {}
+    t_phase = time.perf_counter()
+
+    def groups_of(plan):
+        return {g.route: g.ids for g in plan.groups}
+
+    def route_recall(res, gt_ids, groups):
+        rec = recall_at_k(res.ids.cpu().numpy(),
+                          res.primary.cpu().numpy() == 0.0, gt_ids)
+        return {r: float(rec[ids].mean()) for r, ids in groups.items()}
+
+    def served(label, fn):
+        """Run ``fn(on_group)`` twice, the first with the counts at 0;
+        (result, plan, launches, QPS per route of the second run, wall s
+        of the second run)."""
+        timings = {}
+
+        def on_group(g, res, secs):
+            timings[g.route] = (len(g.ids), secs)
+
+        ops.reset_launches()
+        res, p = fn(on_group)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        timings.clear()
+        t0 = time.perf_counter()
+        res2, _ = fn(on_group)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if not torch.equal(res.ids, res2.ids):
+            raise AssertionError(f"{label}: two runs disagree")
+        qps = {r: n / s for r, (n, s) in timings.items()}
+        log(f"[slice D] {label}: launches {launches}; QPS " + ", ".join(
+            f"{r} {v:.1f} (slice A {f32_qps.get(r, float('nan')):.1f})"
+            for r, v in qps.items()) + f"; batch {len(q_all) / wall:.1f} "
+            f"queries/s end to end")
+        return res, p, launches, qps, wall
+
+    # -- int8 over the frozen index ----------------------------------------
+    t0 = time.perf_counter()
+    idx.quantized()
+    lay8 = idx.fused_layout("int8")
+    torch.cuda.synchronize()
+    out["int8_state_s"] = time.perf_counter() - t0
+    gt_ids = gt.ids.cpu().numpy()
+    for layout in ("fused", "default"):
+        res, p, launches, qps, wall = served(
+            f"int8 {layout}", lambda og: idx.search_auto(
+                q_all, ds.filt, k=K, ls=LS, max_iters=MI, layout=layout,
+                dtype="int8", return_plan=True, on_group=og))
+        groups = groups_of(p)
+        rec = route_recall(res, gt_ids, groups)
+        log(f"[slice D] int8 {layout}: recall@{K} per route {rec} (f32 "
+            f"fused, slice A: {f32_recall})")
+        if rec["graph"] < RECALL_MIN:
+            raise AssertionError(f"int8 {layout} graph recall "
+                                 f"{rec['graph']:.4f} < {RECALL_MIN}")
+        if not np.array_equal(res.ids.cpu().numpy()[groups["prefilter"]],
+                              gt_ids[groups["prefilter"]]):
+            raise AssertionError(f"int8 {layout}: prefilter ids differ from "
+                                 "the exact scan")
+        if layout == "fused" and launches["fused_expand"] <= 0:
+            raise AssertionError("int8 fused search launched no fused_expand")
+        out[f"int8_{layout}"] = dict(recall=rec, qps=qps, launches=launches,
+                                     batch_s=wall)
+    # fused_expand on the int8 lanes at the graph group's shapes
+    gi = torch.as_tensor(groups["graph"], device=dev)
+    Bg, C = len(gi), R + idx.cfg.ex_slots
+    q_eff, qgn = lay8.fold_query(q_all[gi])
+    q_eff = q_eff.contiguous()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    id_sets = [torch.randint(0, N, (Bg, C), generator=gen, device=dev,
+                             dtype=torch.int32) for _ in range(COLD_SETS)]
+    err = check_fused_expand(torch, ops, ref, lay8.packed, id_sets[0], q_eff,
+                             qgn, D)
+    A = lay8.n_attr_words
+    b, o = bound_ms(Bg * C * ((D + 1 + A) * 4 + 4 + 4 + A * 4)
+                    + Bg * (D + 1) * 4, 2 * Bg * C * D)
+    rec8 = dict(
+        shape=f"packed[{N},{D + 1 + A}] int8 lanes ids[{Bg},{C}]",
+        max_abs_err=err,
+        ms=cold_ms(torch, [lambda s=s: ops.fused_expand(
+            lay8.packed, s, q_eff, qgn, d=D) for s in id_sets], 50),
+        warm_ms=cuda_ms(torch, lambda: ops.fused_expand(
+            lay8.packed, id_sets[0], q_eff, qgn, d=D), 50),
+        plain_ms=cuda_ms(torch, lambda: ref.fused_expand(
+            lay8.packed, id_sets[0], q_eff, qgn, d=D), 10),
+        bound_ms=b, bound_by=o,
+        launches=out["int8_fused"]["launches"]["fused_expand"])
+    kernels["fused_expand"]["int8"] = rec8
+    log(f"[kernels] fused_expand {rec8['shape']}: max_abs_err {err:.3g}, "
+        f"{rec8['ms']:.6f} ms cold, {rec8['warm_ms']:.6f} ms warm (plain "
+        f"{rec8['plain_ms']:.4f} ms, bound {b:.4f} ms by {o}), "
+        f"{rec8['launches']} launches in the int8 fused run")
+    del id_sets
+    # the card's quantization against the CPU's, bit for bit
+    rows = torch.randperm(N, generator=gen, device=dev)[:65_536]
+    xs = idx.xb[rows.sort().values]
+    cc, cs = quantize_int8(xs)
+    hc, hs = quantize_int8(xs.cpu())
+    if not (torch.equal(cc.cpu(), hc) and torch.equal(
+            cs.cpu().view(torch.int32), hs.view(torch.int32))):
+        raise AssertionError("quantize_int8 on the card differs from the CPU")
+    log(f"[slice D] quantize_int8 on {len(rows)} rows: the card's codes and "
+        "scale equal the CPU's bit for bit")
+    del cc, cs, hc, hs, xs
+
+    # -- streaming: inserts, merged search, compaction ---------------------
+    n_batches = 4
+    M = N // 50 // n_batches * n_batches    # 2% of N: 20,000 at 1M rows
+    rng = np.random.default_rng(1)
+    std = idx.xb.std(0).cpu().numpy()
+    src = rng.integers(0, N, M)
+    xv = (idx.xb[torch.as_tensor(src, device=dev)].cpu().numpy()
+          + rng.normal(size=(M, D)) * 0.1 * std).astype(np.float32)
+    bits = rng.random((M, ds.attr.n_bits)) < 0.5
+    sidx = StreamingJAGIndex(idx)
+    step = M // n_batches
+    t0 = time.perf_counter()
+    for i in range(n_batches):
+        rep = sidx.insert(xv[i * step:(i + 1) * step],
+                          subset_table(bits[i * step:(i + 1) * step],
+                                       ds.attr.n_bits, device=dev))
+        if rep["compacted"]:
+            raise AssertionError("an insert compacted at the default "
+                                 "compact_frac")
+    out["insert_s"] = time.perf_counter() - t0
+    log(f"[slice D] inserted {M} rows in {n_batches} batches in "
+        f"{out['insert_s']:.3f} s: epoch {sidx.epoch}, delta {sidx.delta.n}")
+    xcat = torch.cat([idx.xb, torch.as_tensor(xv, device=dev)])
+    live = sidx.attr
+    gt_cat = exact_filtered_knn(xcat, live, q_all, ds.filt, k=K,
+                                use_kernel=True).ids.cpu().numpy()
+    res, p, launches, qps, wall = served(
+        "streamed f32 fused", lambda og: sidx.search_auto(
+            q_all, ds.filt, k=K, ls=LS, max_iters=MI, layout="fused",
+            return_plan=True, on_group=og))
+    groups = groups_of(p)
+    if not all(r.endswith("+delta") for r in p.realized):
+        raise AssertionError(f"a streamed route lacks +delta: {p.realized}")
+    ops.reset_launches()
+    extra = sidx.executor.delta(q_all, ds.filt, k=K)
+    torch.cuda.synchronize()
+    delta_launches = dict(ops.LAUNCHES)
+    for name in ("gather_dist_tile", "bitset_dist"):
+        if delta_launches[name] <= 0:
+            raise AssertionError(f"the delta scan launched no {name}")
+    t0 = time.perf_counter()
+    sidx.executor.merge(res, sidx.executor.delta(q_all, ds.filt, k=K), k=K)
+    torch.cuda.synchronize()
+    delta_s = time.perf_counter() - t0
+    log(f"[slice D] delta scan of {M} rows and merge for {len(q_all)} "
+        f"queries: {delta_s * 1e3:.1f} ms; launches {delta_launches}; "
+        f"realized {sorted(set(p.realized))}")
+    rec = route_recall(res, gt_cat, groups)
+    ids_np = res.ids.cpu().numpy()
+    if not np.array_equal(ids_np[groups["prefilter"]],
+                          gt_cat[groups["prefilter"]]):
+        raise AssertionError("streamed prefilter ids differ from the exact "
+                             f"scan over {N + M} rows")
+    if rec["graph"] < RECALL_MIN:
+        raise AssertionError(f"streamed graph recall {rec['graph']:.4f} < "
+                             f"{RECALL_MIN}")
+    n_delta_hits = int((res.ids >= N).sum())
+    log(f"[slice D] streamed recall@{K} per route {rec}; {n_delta_hits} "
+        f"inserted rows in the merged top-{K} lists")
+    # the delta scan's last, padded block through the kernel
+    blk = min(4096, M)
+    dp = D + (-D) % 8
+    xv_pad = torch.nn.functional.pad(torch.as_tensor(xv, device=dev),
+                                     (0, dp - D, 0, (-M) % blk)).contiguous()
+    q_pad = torch.nn.functional.pad(q_all, (0, dp - D)).contiguous()
+    last = torch.full((len(q_all),), xv_pad.shape[0] // blk - 1,
+                      dtype=torch.int32, device=dev)
+    terr, exact = check_scan_tile(torch, ops, ref, xv_pad, last, q_pad, blk)
+    if not exact:
+        raise AssertionError("gather_dist_tile on the delta's padded last "
+                             "block is not bit-exact")
+    log(f"[slice D] gather_dist_tile xb[{xv_pad.shape[0]},{dp}] "
+        f"q[{len(q_all)},{dp}] tile={blk}, last block padded: bit-exact")
+    out["streamed"] = dict(recall=rec, qps=qps, launches=launches,
+                           batch_s=wall, delta_merge_s=delta_s,
+                           delta_launches=delta_launches,
+                           inserted_in_top_k=n_delta_hits,
+                           realized=sorted(set(p.realized)),
+                           delta_tile_max_abs_err=terr)
+    del extra, xv_pad, q_pad
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sidx.compact()
+    torch.cuda.synchronize()
+    out["compact_s"] = time.perf_counter() - t0
+    nb = sidx.base
+    if nb.graph.shape[0] != N + M or sidx.delta.n:
+        raise AssertionError(f"compaction left {nb.graph.shape[0]} graph rows "
+                             f"and {sidx.delta.n} delta rows")
+    new_deg = int((nb.graph[N:] >= 0).sum(1).min())
+    if new_deg < R * MIN_DEGREE_SHARE:
+        raise AssertionError(f"compaction left an inserted row of degree "
+                             f"{new_deg} (< {R} x {MIN_DEGREE_SHARE})")
+    if not torch.equal(nb.fused_layout("f32").packed.view(torch.int32),
+                       build_layout(nb.xb, nb.attr).packed.view(torch.int32)):
+        raise AssertionError("the extended f32 layout differs from one "
+                             "packed anew")
+    log(f"[slice D] compact {M} rows into {N}: {out['compact_s']:.2f} s; "
+        f"least degree of an inserted row {new_deg}; degree "
+        f"{nb.degree_stats()}; the extended f32 layout equals build_layout "
+        "bit for bit")
+    res, p, launches, qps, wall = served(
+        "compacted f32 fused", lambda og: sidx.search_auto(
+            q_all, ds.filt, k=K, ls=LS, max_iters=MI, layout="fused",
+            return_plan=True, on_group=og))
+    groups = groups_of(p)
+    rec = route_recall(res, gt_cat, groups)
+    ids_np = res.ids.cpu().numpy()
+    if not np.array_equal(ids_np[groups["prefilter"]],
+                          gt_cat[groups["prefilter"]]):
+        raise AssertionError("prefilter ids after compaction differ from "
+                             "the exact scan")
+    if rec["graph"] < RECALL_MIN:
+        raise AssertionError(f"graph recall after compaction "
+                             f"{rec['graph']:.4f} < {RECALL_MIN}")
+    new_hits = int((ids_np[groups["graph"]] >= N).sum())
+    if new_hits == 0:
+        raise AssertionError("no inserted row is served by the graph route")
+    log(f"[slice D] after compaction: recall@{K} per route {rec}; "
+        f"{new_hits} inserted rows in the graph route's results")
+    g_ids = groups["graph"]
+    t0 = time.perf_counter()
+    r8 = sidx.search_int8(q_all[torch.as_tensor(g_ids, device=dev)],
+                          ds.filt.take(g_ids), k=K, ls=LS, layout="fused")
+    torch.cuda.synchronize()
+    int8_s = time.perf_counter() - t0
+    n8 = nb.fused_layout("int8").n
+    if n8 != N + M:
+        raise AssertionError(f"the int8 layout after compaction has {n8} rows")
+    rec8c = float(recall_at_k(r8.ids.cpu().numpy(),
+                              r8.primary.cpu().numpy() == 0.0,
+                              gt_cat[g_ids]).mean())
+    log(f"[slice D] search_int8 after compaction rebuilt its layout over "
+        f"{n8} rows ({int8_s:.2f} s with the rebuild); graph-group recall "
+        f"{rec8c:.4f}")
+    out["compacted"] = dict(recall=rec, qps=qps, launches=launches,
+                            batch_s=wall, new_rows_served=new_hits,
+                            least_new_degree=new_deg, int8_rows=n8,
+                            int8_recall=rec8c, int8_first_s=int8_s)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[slice D] {out['phase_s']:.1f} s")
     return out
 
 
@@ -839,10 +1134,15 @@ def main(argv=None) -> int:
                              qps=qps, recall=recall, launches=launches,
                              first_run_ms={r: s * 1e3
                                            for r, (_, s) in cold.items()})
-    del idx, gt, res, res2
+    del res, res2
+
+    # -- 5. slice D: int8 and streaming over slice A's index ----------------
+    report["slice_d"] = run_slice_d(torch, np, idx, ds, q_all, gt, recall,
+                                    qps, kernels, K, LS, MI)
+    del idx, gt
     torch.cuda.empty_cache()
 
-    # -- 5. slice B: Boolean validity through the deficit kernel -----------
+    # -- 6. slice B: Boolean validity through the deficit kernel -----------
     t0 = time.perf_counter()
     dsb = synthetic.msturing_bool(n=100_000, d=D, b=128, n_vars=15,
                                   device=dev)
@@ -865,7 +1165,7 @@ def main(argv=None) -> int:
         f"{time.perf_counter() - t0:.1f} s")
     report["slice_b"] = {"launches": lb, "hits": n_valid}
 
-    # -- 6. slice C: dense-LM serving ------------------------------------
+    # -- 7. slice C: dense-LM serving ------------------------------------
     del xbb, qb, got, want
     torch.cuda.empty_cache()
     full = LM_SHAPES["prefill_32k"]

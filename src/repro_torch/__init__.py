@@ -4,8 +4,9 @@ an NVIDIA H100.
 The subpackages mirror ``repro``'s, so each module's reference is the file
 of the same name there: ``core/`` (filters, distances, beam search, build,
 the exact scan, the index), ``serve/`` (layout, engine, planner, dispatch,
-executor), ``kernels/`` (wrappers of the hand-written CUDA kernels in
-``csrc/`` and their plain PyTorch versions) and ``data/``.
+executor), ``stream/`` (the streaming index), ``kernels/`` (wrappers of
+the hand-written CUDA kernels in ``csrc/`` and their plain PyTorch
+versions) and ``data/``.
 
 This package imports torch and numpy, never jax and never ``repro``. Entry
 points take ``device=`` and default to ``"cuda"``; resolving a CUDA device

@@ -204,6 +204,19 @@ class AttrTable:
                                      for k, v in self.data.items()},
                          self.n_bits)
 
+    def append(self, other: "AttrTable") -> "AttrTable":
+        """Rows of ``other`` after this table's rows (the streaming layer's
+        live base + delta table). The global ``bit_weights`` are kept from
+        ``self``; ``other`` must agree on kind and n_bits."""
+        if other.kind != self.kind or other.n_bits != self.n_bits:
+            raise ValueError(
+                f"cannot append {other.kind}/{other.n_bits} rows to a "
+                f"{self.kind}/{self.n_bits} table")
+        return AttrTable(self.kind, {
+            k: (v if k == "bit_weights"
+                else torch.cat([v, other.data[k].to(v.device)]))
+            for k, v in self.data.items()}, self.n_bits)
+
 
 def label_table(labels, device=None) -> AttrTable:
     return AttrTable(LABEL, {"label": to_tensor(labels, torch.int32, device)})

@@ -105,6 +105,11 @@ def _from_numpy(a: np.ndarray, device) -> torch.Tensor:
 class JAGIndex:
     """A built Joint Attribute Graph over (vectors, attributes)."""
 
+    # data epoch of a frozen index: never changes. The streaming layer
+    # (repro_torch.stream) bumps its own on every insert and compaction,
+    # and the executor's caches follow it.
+    epoch: int = 0
+
     def __init__(self, xb: torch.Tensor, attr: AttrTable, graph, degree,
                  entry, cfg: JAGConfig, build_cfg: BuildConfig):
         self.xb = xb
@@ -117,6 +122,7 @@ class JAGIndex:
         self.build_cfg = build_cfg
         self._executor = None                # serve.Executor, built lazily
         self._fused = {}                     # vec_dtype -> serve.FusedLayout
+        self._q8 = None                      # (codes, scale, norms) cache
 
     @property
     def device(self) -> torch.device:
@@ -165,6 +171,16 @@ class JAGIndex:
                                                   vec_dtype=vec_dtype)
         return self._fused[vec_dtype]
 
+    def quantized(self):
+        """(codes int8 [N, d], scale f32 [d], dequantized norms f32 [N]),
+        computed once; saved in the archive, so a loaded index never
+        re-quantizes."""
+        if self._q8 is None:
+            from .quantized import dequant_sq_norms, quantize_int8
+            codes, scale = quantize_int8(self.xb)
+            self._q8 = (codes, scale, dequant_sq_norms(codes, scale))
+        return self._q8
+
     # -- query (Algorithm 2) ------------------------------------------------
     def search(self, queries, filt, k: int = 10, ls: int = 64,
                max_iters: int = 0, layout: str = "default") -> SearchResult:
@@ -174,6 +190,16 @@ class JAGIndex:
         return self.executor.graph(self._q(queries), as_filter(filt), k=k,
                                    ls=ls, max_iters=max_iters or 2 * ls,
                                    layout=layout, dtype="f32")
+
+    def search_int8(self, queries, filt, k: int = 10, ls: int = 64,
+                    max_iters: int = 0,
+                    layout: str = "default") -> SearchResult:
+        """Traversal over the int8 codes, then an exact re-rank of the beam
+        with the f32 rows. ``layout="fused"`` packs [codes | norm | attr]
+        so each expansion is one gather (``fused_expand`` on the card)."""
+        return self.executor.graph(self._q(queries), as_filter(filt), k=k,
+                                   ls=ls, max_iters=max_iters or 2 * ls,
+                                   layout=layout, dtype="int8")
 
     def search_unfiltered(self, queries, k: int = 10, ls: int = 64,
                           max_iters: int = 0) -> SearchResult:
@@ -194,8 +220,11 @@ class JAGIndex:
         route group as its own sub-batch; ``mode="batch"`` routes the whole
         batch by the median. ``return_plan=True`` returns ``(result,
         plan)``, the plan's ``realized`` field naming the executed route
-        variant. ``on_group(group, result, seconds)`` (per_query mode) is
-        called after each group has finished on the device.
+        variant (``graph[fused,int8]``; a streaming index appends
+        ``+delta``). ``layout``/``dtype`` select the graph route's serving
+        variant in either mode. ``on_group(group, result, seconds)``
+        (per_query mode) is called after each group has finished on the
+        device.
         """
         from ..serve.dispatch import (dispatch_per_query, route_descriptor,
                                       run_route)
@@ -226,8 +255,10 @@ class JAGIndex:
 
     # -- persistence ---------------------------------------------------------
     def _save_arrays(self) -> dict:
-        """The index as a flat npz-ready dict in the reference's format;
-        packed fused rows are stored as raw uint32 bit patterns."""
+        """The index as a flat npz-ready dict in the reference's format
+        (shared with ``repro_torch.stream``); packed fused rows are stored
+        as raw uint32 bit patterns, and any computed int8 quantization rides
+        along (``q8__*``)."""
         def host(t):
             return t.cpu().numpy()
 
@@ -237,6 +268,9 @@ class JAGIndex:
                 np.uint32)
             extra[f"fused_{dt}__q_scale"] = host(lay.q_scale)
             extra[f"fused_{dt}__bit_weights"] = host(lay.bit_weights)
+        if self._q8 is not None:
+            for name, t in zip(("codes", "scale", "norms"), self._q8):
+                extra[f"q8__{name}"] = host(t)
         attr = {}
         for k, v in self.attr.data.items():
             a = host(v)
@@ -256,13 +290,15 @@ class JAGIndex:
     @classmethod
     def from_arrays(cls, d, device=None) -> "JAGIndex":
         """An index from the reference's ``_save_arrays()`` dict (or a
-        loaded npz mapping), on ``device`` (default "cuda").
+        loaded npz mapping, the streaming archive's included), on
+        ``device`` (default "cuda").
 
         ``cfg``/``build_cfg`` are decoded as the reference decodes them; an
-        archive without ``build_cfg`` falls back to the defaults. The f32
-        fused layout's ``packed_bits`` are kept as raw 32-bit words. The
-        int8 state of the reference (``fused_int8__*``, ``q8__*``) and an
-        attached cost model are not ported yet and are not read.
+        archive without ``build_cfg`` falls back to the defaults. The fused
+        layouts' ``packed_bits`` (f32 and int8 lanes) are kept as raw
+        32-bit words, and the int8 quantization (``q8__*``) is taken as
+        stored, never recomputed. An attached cost model (``cost__*``) is
+        not read.
         """
         dev = resolve_device(device)
         cfg = JAGConfig(**_decode_cfg(d["cfg"]))
@@ -276,14 +312,18 @@ class JAGIndex:
         idx = cls(xb, attr, _from_numpy(d["graph"], dev),
                   _from_numpy(d["degree"], dev),
                   _from_numpy(d["entry"], dev).reshape(-1), cfg, bcfg)
-        if "fused_f32__packed_bits" in d:
-            from ..serve.layout import FusedLayout
-            packed = _from_numpy(d["fused_f32__packed_bits"], dev)
-            idx._fused["f32"] = FusedLayout(
-                packed.view(torch.float32),
-                _from_numpy(d["fused_f32__q_scale"], dev),
-                _from_numpy(d["fused_f32__bit_weights"], dev),
-                attr.kind, attr.n_bits, int(xb.shape[1]), "f32")
+        from ..serve.layout import FusedLayout, VEC_DTYPES
+        for dt in VEC_DTYPES:
+            if f"fused_{dt}__packed_bits" in d:
+                packed = _from_numpy(d[f"fused_{dt}__packed_bits"], dev)
+                idx._fused[dt] = FusedLayout(
+                    packed.view(torch.float32),
+                    _from_numpy(d[f"fused_{dt}__q_scale"], dev),
+                    _from_numpy(d[f"fused_{dt}__bit_weights"], dev),
+                    attr.kind, attr.n_bits, int(xb.shape[1]), dt)
+        if "q8__codes" in d:
+            idx._q8 = tuple(_from_numpy(d[f"q8__{name}"], dev)
+                            for name in ("codes", "scale", "norms"))
         return idx
 
     @classmethod

@@ -23,7 +23,7 @@ from ..core.beam_search import SearchResult
 from ..core.distances import lex_sort
 from .planner import PerQueryPlan
 
-__all__ = ["dispatch_per_query", "merge_topk", "regroup",
+__all__ = ["dispatch_per_query", "fold_topk", "merge_topk", "regroup",
            "route_descriptor", "run_route"]
 
 
@@ -64,6 +64,19 @@ def merge_topk(base: SearchResult, extra: SearchResult, *,
     return SearchResult(ids[:, :k], prim[:, :k], sec[:, :k], base.vlog,
                         base.n_expanded + extra.n_expanded,
                         base.n_dist + extra.n_dist)
+
+
+def fold_topk(parts, *, k: int) -> SearchResult:
+    """N-way :func:`merge_topk` fold over per-segment results, in segment
+    order: ties on the (primary, secondary) key resolve to the lowest
+    segment, and within it the lowest id, as one scan over the
+    concatenated database would."""
+    if not parts:
+        raise ValueError("fold_topk needs at least one part")
+    out = parts[0]
+    for p in parts[1:]:
+        out = merge_topk(out, p, k=k)
+    return out
 
 
 def regroup(parts, groups, batch: int) -> SearchResult:

@@ -10,33 +10,46 @@ and holds the route closures built for them, so the set of route variants
 a process has served is enumerable (``cache_keys()``) exactly as in the
 reference.
 
-Routes (serve/planner.py picks between them):
+Routes (serve/planner.py picks between the first three):
 
   prefilter  - masked brute-force scan over filter-passing rows
                (core/ground_truth.py). On the card it runs the
                ``gather_dist_tile`` and ``bitset_dist`` kernels.
-  graph      - JAG traversal (core/beam_search.py), default or fused f32
-               layout. The fused layout's expansion runs the
-               ``fused_expand`` kernel on the card.
+  graph      - JAG traversal (core/beam_search.py), default or fused
+               layout, f32 or int8 vector lanes (int8: traversal on the
+               codes, then an exact re-rank). The fused layout's expansion
+               runs the ``fused_expand`` kernel on the card.
   postfilter - unfiltered traversal with an ls-wide beam, the filter
                applied to the survivors.
+  delta      - exact masked scan over a streaming index's delta segment,
+               ids offset past the graph segment (the prefilter's scan and
+               kernels). Only for an index with ``delta_arrays()``
+               (``repro_torch.stream.StreamingJAGIndex``).
+  merge      - folds the delta's top-k into any base route's, exactly.
 
-``use_kernel`` defaults to whether the index lives on the card.
+Every cache is keyed by the index's data epoch (``JAGIndex.epoch`` is 0
+forever; a ``StreamingJAGIndex`` bumps it on every insert and compaction):
+a rolled epoch evicts every route closure, planner probe and engine, so a
+grown index never routes on a stale probe or serves a pre-compaction
+layout. ``use_kernel`` defaults to whether the index lives on the card.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable, Tuple
 
 import torch
 
 from ..core.beam_search import SearchResult, greedy_search
-from ..core.distances import INF, lex_sort, query_key_fn, unfiltered_key_fn
+from ..core.distances import (INF, gathered_d2, lex_sort, query_key_fn,
+                              unfiltered_key_fn)
 from ..core.filters import FilterExpr, matches, n_leaves
 from ..core.ground_truth import exact_filtered_knn
+from ..core.quantized import make_int8_dist_fn, rerank_exact
 from .engine import FusedEngine
 
 LAYOUTS = ("default", "fused")
-VEC_DTYPES = ("f32",)
+VEC_DTYPES = ("f32", "int8")
 
 
 class Executor:
@@ -48,14 +61,32 @@ class Executor:
         self._cache: dict = {}
         self._engines: dict = {}
         self._samples: dict = {}
+        self._cache_epoch: int = self.epoch
 
     @property
     def use_kernel(self) -> bool:
         return self.index.xb.is_cuda
 
+    # -- cache plumbing ----------------------------------------------------
+    @property
+    def epoch(self) -> int:
+        """The index's data epoch (0 forever for a frozen JAGIndex)."""
+        return getattr(self.index, "epoch", 0)
+
+    def _roll_epoch(self) -> None:
+        """Evict every cache built against an earlier data epoch."""
+        e = self.epoch
+        if e != self._cache_epoch:
+            self._cache.clear()
+            self._samples.clear()
+            self._engines.clear()
+            self._cache_epoch = e
+
     def sample_ids(self, n: int, n_samples: int, seed: int = 0):
-        """Planner probe rows, cached per executor (so per index)."""
-        key = (n, n_samples, seed)
+        """Planner probe rows, cached per executor (so per index) and per
+        data epoch: a grown table is never probed over stale rows."""
+        self._roll_epoch()
+        key = (self._cache_epoch, n, n_samples, seed)
         ids = self._samples.get(key)
         if ids is None:
             from .planner import sample_ids
@@ -64,18 +95,25 @@ class Executor:
         return ids
 
     def run(self, key: Tuple, make: Callable[[], Callable], *args):
-        """Run the route closure cached under ``key`` (``make()`` is called
-        on the first use of a key only)."""
-        fn = self._cache.get(key)
+        """Run the route closure cached under ``(epoch,) + key``
+        (``make()`` is called on the first use of a key in an epoch)."""
+        self._roll_epoch()
+        epoch_key = (self._cache_epoch,) + key
+        fn = self._cache.get(epoch_key)
         if fn is None:
-            fn = self._cache[key] = make()
+            fn = self._cache[epoch_key] = make()
         return fn(*args)
 
-    def cache_keys(self) -> Tuple:
-        return tuple(self._cache)
+    def cache_keys(self, full: bool = False) -> Tuple:
+        """Route keys of the current epoch (an epoch roll empties them);
+        ``full=True`` keeps each key's leading epoch."""
+        self._roll_epoch()
+        return tuple(self._cache) if full else tuple(
+            k[1:] for k in self._cache)
 
     def engine(self, vec_dtype: str = "f32") -> FusedEngine:
-        """FusedEngine over the index's packed layout."""
+        """FusedEngine over the index's packed layout, per epoch."""
+        self._roll_epoch()
         if vec_dtype not in self._engines:
             self._engines[vec_dtype] = FusedEngine(
                 self.index.fused_layout(vec_dtype))
@@ -84,24 +122,39 @@ class Executor:
     # -- graph route (JAG traversal; Algorithm 2) --------------------------
     def graph(self, queries, filt, *, k: int, ls: int, max_iters: int,
               layout: str = "default", dtype: str = "f32") -> SearchResult:
+        """JAG traversal. int8 traverses with ``k = ls`` over the codes
+        (the fused layout's lanes, or ``index.quantized()`` with the split
+        layout), then re-ranks the beam with the f32 rows."""
         if layout not in LAYOUTS:
             raise ValueError(f"layout must be 'default' or 'fused', "
                              f"got {layout!r}")
         if dtype not in VEC_DTYPES:
-            raise ValueError(f"dtype must be 'f32' (the int8 lanes are not "
-                             f"ported yet), got {dtype!r}")
+            raise ValueError(f"dtype must be 'f32' or 'int8', got {dtype!r}")
         idx = self.index
         key = ("graph", layout, dtype, k, ls, max_iters, filt.kind)
-        fetch_fn = self.engine("f32").fetch_fn if layout == "fused" else None
+        fetch_fn = self.engine(dtype).fetch_fn if layout == "fused" else None
+        # the split int8 route walks the codes under make_int8_dist_fn
+        xs, xs_norm, dist_fn = idx.xb, idx.xb_norm, gathered_d2
+        if dtype == "int8" and layout == "default":
+            xs, scale, xs_norm = idx.quantized()
+            dist_fn = make_int8_dist_fn(scale)
 
         def make():
-            def run(q, filt):
-                return greedy_search(idx.graph, idx.xb, idx.xb_norm,
-                                     idx.attr, q, idx.entry,
-                                     query_key_fn(filt), ls=ls, k=k,
-                                     max_iters=max_iters, fetch_fn=fetch_fn)
+            def run(q, filt, xs, xs_norm, dist_fn, fetch_fn):
+                res = greedy_search(idx.graph, xs, xs_norm, idx.attr, q,
+                                    idx.entry, query_key_fn(filt), ls=ls,
+                                    k=k if dtype == "f32" else ls,
+                                    max_iters=max_iters, dist_fn=dist_fn,
+                                    fetch_fn=fetch_fn)
+                if dtype == "f32":
+                    return res
+                i, p, s = rerank_exact(idx.xb, idx.xb_norm, res.ids,
+                                       res.primary, q, k)
+                return SearchResult(i, p, s, res.vlog, res.n_expanded,
+                                    res.n_dist)
             return run
-        return self.run(key, make, queries, filt)
+        return self.run(key, make, queries, filt, xs, xs_norm, dist_fn,
+                        fetch_fn)
 
     # -- unfiltered traversal ----------------------------------------------
     def unfiltered(self, queries, *, k: int, ls: int,
@@ -118,7 +171,30 @@ class Executor:
             return run
         return self.run(key, make, queries)
 
-    # -- prefilter route (masked exact scan) -------------------------------
+    # -- scan routes (prefilter, delta) -------------------------------------
+    def _scan(self, key: Tuple, xb, attr, queries, filt, *, k: int,
+              block: int, use_kernel: bool, offset: int = 0
+              ) -> SearchResult:
+        """Masked exact scan adapted to the SearchResult contract, behind
+        both scan routes: primary is 0 where a valid neighbour was found,
+        INF on -1 padding; ids are offset by ``offset``; n_dist counts
+        valid points scanned; vlog is ``[B, 0]`` (no traversal)."""
+        def make():
+            def run(xb, attr, q, filt):
+                gt = exact_filtered_knn(xb, attr, q, filt, k=k, block=block,
+                                        use_kernel=use_kernel)
+                B = q.shape[0]
+                ids = (gt.ids if offset == 0
+                       else torch.where(gt.ids >= 0, gt.ids + offset, -1))
+                prim = torch.where(gt.ids >= 0, 0.0, INF)
+                return SearchResult(ids, prim, gt.d2,
+                                    torch.zeros((B, 0), dtype=torch.int32,
+                                                device=q.device),
+                                    torch.zeros((B,), dtype=torch.int32,
+                                                device=q.device), gt.n_dist)
+            return run
+        return self.run(key, make, xb, attr, queries, filt)
+
     def _reorder_compound(self, filt):
         """Short-circuit-optimal clause order for a compound expression,
         from each leaf's validity on the cached sample rows. Result-
@@ -136,30 +212,43 @@ class Executor:
 
     def prefilter(self, queries, filt, *, k: int, block: int = 4096,
                   use_kernel: bool | None = None) -> SearchResult:
-        """Masked exact scan over the index's rows, adapted to the
-        SearchResult contract: primary is 0 where a valid neighbour was
-        found, INF on -1 padding; n_dist counts valid points scanned; vlog
-        is ``[B, 0]`` (no traversal)."""
+        """Masked exact scan over the index's (graph-segment) rows."""
         if use_kernel is None:
             use_kernel = self.use_kernel
         filt = self._reorder_compound(filt)
         idx = self.index
         key = ("prefilter", "default", "f32", k, 0, 0, filt.kind, block,
                use_kernel)
+        return self._scan(key, idx.xb, idx.attr, queries, filt, k=k,
+                          block=block, use_kernel=use_kernel)
 
-        def make():
-            def run(q, filt):
-                gt = exact_filtered_knn(idx.xb, idx.attr, q, filt, k=k,
-                                        block=block, use_kernel=use_kernel)
-                B = q.shape[0]
-                prim = torch.where(gt.ids >= 0, 0.0, INF)
-                zeros = torch.zeros((B,), dtype=torch.int32, device=q.device)
-                return SearchResult(gt.ids, prim, gt.d2,
-                                    torch.zeros((B, 0), dtype=torch.int32,
-                                                device=q.device),
-                                    zeros, gt.n_dist)
-            return run
-        return self.run(key, make, queries, filt)
+    def delta(self, queries, filt, *, k: int, block: int = 4096,
+              use_kernel: bool | None = None) -> SearchResult:
+        """Exact masked scan over a streaming index's delta segment, ids
+        offset past the graph segment, so ``merge`` folds them into any
+        base route's top-k as if the concatenation had been searched. The
+        block is capped at the delta's row count: a 60-row delta never
+        pays a 4096-row tile."""
+        if not hasattr(self.index, "delta_arrays"):
+            raise TypeError("delta route needs a streaming index exposing "
+                            "delta_arrays(); JAGIndex is frozen")
+        if use_kernel is None:
+            use_kernel = self.use_kernel
+        xv, dattr, offset = self.index.delta_arrays()
+        block = max(1, min(block, int(xv.shape[0])))
+        key = ("delta", "default", "f32", k, 0, 0, filt.kind, block,
+               use_kernel, offset)
+        return self._scan(key, xv, dattr, queries, filt, k=k, block=block,
+                          use_kernel=use_kernel, offset=offset)
+
+    def merge(self, base: SearchResult, extra: SearchResult, *,
+              k: int) -> SearchResult:
+        """Fold two per-query top-k results into one exact top-k
+        (``dispatch.merge_topk``: ties resolve to ``base``, as a scan of
+        base rows before delta rows)."""
+        from .dispatch import merge_topk
+        key = ("merge", "default", "f32", k, 0, 0, None)
+        return self.run(key, lambda: partial(merge_topk, k=k), base, extra)
 
     # -- postfilter route (ls-wide unfiltered beam + filter) ---------------
     def postfilter(self, queries, filt, *, k: int, ls: int,
@@ -189,4 +278,3 @@ class Executor:
                                     res.vlog, res.n_expanded, n_dist)
             return run
         return self.run(key, make, queries, filt)
-

@@ -7,7 +7,9 @@ elsewhere. The module imports no JAX, so it runs on a machine without it:
 
 d2 agrees within 1e-5 of |x|^2 + |q|^2 (another float summation order;
 l2dist's split-TF32 product loses about 2^-22 of |q||x| besides);
-attr words, the scan tile and popcounts are bit-exact. gather_dist agrees
+attr words, the scan tile and popcounts are bit-exact. The int8 fused
+layout takes the same kernel and the same gate, and the streaming index's
+delta route returns the plain scan's ids. gather_dist agrees
 within 1e-5 of its value (a sum of squares). Attention in float32 agrees
 within 1e-4 (another order of the float32 sums and the split-TF32
 products, amplified by exp); in bf16
@@ -25,7 +27,9 @@ import pytest
 import torch
 
 from repro_torch import configs
-from repro_torch.core.filters import pack_bits
+from repro_torch.core.filters import (pack_bits, range_table, subset_filters,
+                                      subset_table)
+from repro_torch.serve.layout import build_layout
 from repro_torch.kernels import ops, ref
 from repro_torch.models import transformer as TT
 
@@ -108,12 +112,93 @@ def test_cuda_fused_expand_shapes(sm90, d, A, C, B):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["range", "subset"])
+def test_cuda_fused_expand_int8_layout(sm90, kind):
+    """The int8 lanes: codes widened to f32, the query folded by the
+    scale, the dequantized norm in lane d."""
+    rng = np.random.default_rng(6)
+    N, d, B, C = 4000, 100, 300, 144
+    x = _t(rng.normal(size=(N, d)).astype(np.float32)).to(sm90)
+    tab = (range_table(rng.uniform(0, 1, N).astype(np.float32), device=sm90)
+           if kind == "range" else
+           subset_table(rng.random((N, 30)) < 0.5, 30, device=sm90))
+    lay = build_layout(x, tab, vec_dtype="int8")
+    ids = _t(rng.integers(-1, N + 1, (B, C)).astype(np.int32)).to(sm90)
+    q_eff, qn = lay.fold_query(_t(rng.normal(size=(B, d)).astype(
+        np.float32)).to(sm90))
+    _check_fused_expand(lay.packed, ids, q_eff.contiguous(), qn, d)
+
+
+@pytest.mark.gpu
+def test_cuda_quantize_int8_equals_cpu(sm90):
+    """Codes, scale and dequantized norms on the card equal the CPU's bit
+    for bit, ties and a zero column included."""
+    from repro_torch.core.quantized import dequant_sq_norms, quantize_int8
+    rng = np.random.default_rng(8)
+    x = (rng.normal(size=(65536, 100))
+         * 10.0 ** rng.integers(-3, 4, 100)).astype(np.float32)
+    x[:, 0] = 0.0
+    x[:6, 1] = [127.0, 0.5, 1.5, -2.5, -0.5, 126.5]
+    x[6:, 1] = 0.0
+    hc, hs = quantize_int8(_t(x))
+    cc, cs = quantize_int8(_t(x).to(sm90))
+    assert torch.equal(cc.cpu(), hc)
+    assert torch.equal(cs.cpu().view(torch.int32), hs.view(torch.int32))
+    assert torch.equal(dequant_sq_norms(cc, cs).cpu(),
+                       dequant_sq_norms(hc, hs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_delta", [60, 5000])
+def test_cuda_delta_route_kernels_match_plain(sm90, n_delta):
+    """A streaming index on the card: the delta route's kernel scan returns
+    the plain versions' ids, and the merged exact search equals the exact
+    scan over the concatenated rows."""
+    from repro_torch.core.ground_truth import exact_filtered_knn
+    from repro_torch.core.jag import JAGConfig, JAGIndex
+    from repro_torch.serve.planner import PlannerConfig
+    from repro_torch.stream import StreamingJAGIndex
+    rng = np.random.default_rng(n_delta)
+    N, d, B, L = 3000, 100, 64, 30
+    x = rng.normal(size=(N + n_delta, d)).astype(np.float32)
+    bits = rng.random((N + n_delta, L)) < 0.5
+    idx = StreamingJAGIndex(JAGIndex.build(
+        x[:N], subset_table(bits[:N], L, device=sm90),
+        JAGConfig(degree=16, ls_build=32, batch_size=512, cand_pool=64),
+        device=sm90), compact_frac=0.0)
+    idx.insert(x[N:], subset_table(bits[N:], L, device=sm90))
+    q = _t(rng.normal(size=(B, d)).astype(np.float32)).to(sm90)
+    fb = np.zeros((B, L), bool)
+    fb[:, :2] = True
+    filt = subset_filters(fb, L, device=sm90)
+    ops.reset_launches()
+    got = idx.executor.delta(q, filt, k=10)
+    assert ops.LAUNCHES["gather_dist_tile"] > 0
+    assert ops.LAUNCHES["bitset_dist"] > 0
+    xv, dattr, off = idx.delta_arrays()
+    want = exact_filtered_knn(xv, dattr, q, filt, k=10,
+                              block=min(4096, n_delta), use_kernel=True,
+                              impl=ref)
+    assert torch.equal(got.ids, torch.where(want.ids >= 0, want.ids + off,
+                                            -1))
+    assert torch.equal(got.secondary, want.d2)
+    res = idx.search_auto(q, filt, k=10, planner=PlannerConfig(
+        prefilter_max_sel=1.1, postfilter_min_sel=1.2))
+    full = exact_filtered_knn(torch.cat([idx.xb, xv]), idx.attr, q, filt,
+                              k=10, use_kernel=True)
+    assert torch.equal(res.ids, full.ids)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("B,dp,tile", [
     (37, 104, 4096),      # B not a multiple of the 64-lane block
     (1, 104, 4096),
     (130, 8, 4096),
     (70, 136, 4096),
     (37, 104, 200),       # a tile that is no multiple of the 128-row block
+    (37, 104, 60),        # tiles below one block: a small delta's scan
+    (70, 8, 1),
+    (1, 104, 1),
 ])
 def test_cuda_gather_dist_tile_bit_exact(sm90, B, dp, tile):
     rng = np.random.default_rng(5)
