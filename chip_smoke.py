@@ -84,11 +84,45 @@ result line:
    among the graph route's ids) and ``search_int8``, whose int8 layout is
    rebuilt over 1,020,000 rows. QPS per route of each served batch is
    printed beside slice A's; no gate.
-6. Slice B, the Boolean call site of the deficit kernel: msturing_bool
+6. Slice E, the cost model and serving telemetry over slice A's index (no
+   rebuild). Calibration on the card over ``cost.FULL_GRID`` (ns 8000 and
+   20000, ds 32 and 64, five selectivities, lss 32, 64, 128, b 64,
+   delta_ns 256 and 1024, 3 repeats): every
+   observation finite and positive, the model covering all six routes
+   under ``us``, its backend ``cuda``, and ``CostRegistry`` round tripping
+   it. Every distinct call signature of ``fused_expand``,
+   ``gather_dist_tile`` and ``bitset_dist`` the calibration made (its
+   grid builds, scans and compactions at d 32 and 64) is kept and held
+   against the plain version on the same inputs: fused_expand's d2 within
+   the d2 tolerance and its attr words bit for bit, the scan tiles bit for
+   bit. Slice A's batch routed by the model (route counts beside the static
+   plan's, predicted costs, ``explain``): prefilter-routed ids equal the
+   exact scan's, graph-routed and whole-batch recall@10 at least 0.80;
+   QPS beside the static plan's in the same process. The static plan's
+   batch twice with ``Telemetry(introspect=True, spans=True,
+   shadow=0.05)``, each time followed by a run without it (telemetry on,
+   off, on, off): one trace per query per call, each matching its plan,
+   traced n_expanded equal to the hops of ``TraversalStats``, ids and keys
+   equal to the same plan's without telemetry bit for bit, the shadow
+   oracle's flush launching ``gather_dist_tile`` with prefilter recall
+   1.0, the trace JSONL loading back equal, the health report rendering;
+   printed: dead ends per selectivity band, shadow recall, span totals,
+   the grid model's held-out error on the traces before and after
+   ``maybe_recalibrate``, and QPS with and without telemetry. Then a
+   ``StreamingJAGIndex`` over the index with the model takes slice D's
+   20,000 rows in 4 inserts with auto-compaction: each insert's
+   ``compaction_break_even`` must be finite; the streamed batch's
+   prefilter ids equal the exact scan over base + delta and its graph
+   recall is at least 0.80; the delta scan + merge ms is printed. The
+   streamed batch then runs twice with ``Telemetry(shadow=0.05)`` on the
+   streaming index: the flush launches ``gather_dist_tile`` and the
+   prefilter's shadow recall is 1.0; the card's memory peak above the
+   served state is printed, while serving and through the flush.
+7. Slice B, the Boolean call site of the deficit kernel: msturing_bool
    (N = 100,000, 15 variables) through the prefilter scan on the card with
    the kernels, whose ids must equal the same scan's through the plain
    versions.
-7. Slice C, dense-LM serving: qwen3-1.7b at its published width and depth
+8. Slice C, dense-LM serving: qwen3-1.7b at its published width and depth
    (28 layers, d_model 2048, 16 heads, 8 kv heads, head_dim 128, vocab
    151,936), random weights from ``--seed`` on the card, matrices kept in
    bf16 for serving. 4 requests of 4,096 prompt tokens (LM_SHAPES
@@ -138,6 +172,7 @@ RECALL_MIN = 0.80
 MIN_DEGREE_SHARE = 1 / 8       # a built row below R / 8 edges is a fault
 LM_ARCH = "qwen3-1.7b"
 LM_BATCH, LM_PROMPT, LM_STEPS = 4, 4096, 32   # prefill_32k cut to fit
+E_INSERTS, E_INSERT_ROWS = 4, 5000   # slice E's streamed rows, as slice D's
 LM_F32_TOL = 1e-4              # float32 prefill, of the largest logit
 LM_BF16_NOISE = 2              # bf16 checks: widths of bf16's own error
 
@@ -355,6 +390,72 @@ def check_scan_tile(torch, ops, ref, xb, base, q, tile) -> tuple:
     return err, torch.equal(got, want)
 
 
+class KernelCalls:
+    """While installed, keeps a copy of the first call of each named
+    ``ops`` wrapper at each distinct input signature (shapes, dtypes and
+    scalar arguments), so that a path's calls can be held against the
+    plain versions afterwards at the shapes the path gave them. Inputs of
+    up to 2^20 elements are copied; larger ones (the row tables, which no
+    path writes in place) are kept by reference. The calls themselves go
+    through unchanged."""
+
+    def __init__(self, torch, ops, names):
+        self.torch, self.ops, self.names = torch, ops, names
+        self.calls = {n: {} for n in names}
+        self._orig = {}
+
+    def _sig(self, args, kw):
+        t = self.torch
+        return tuple((tuple(a.shape), str(a.dtype)) if isinstance(a, t.Tensor)
+                     else a for a in args) + tuple(sorted(kw.items()))
+
+    def __enter__(self):
+        t = self.torch
+        for name in self.names:
+            fn = self._orig[name] = getattr(self.ops, name)
+
+            def rec(*args, _fn=fn, _seen=self.calls[name], **kw):
+                sig = self._sig(args, kw)
+                if sig not in _seen:
+                    _seen[sig] = ([a.clone() if isinstance(a, t.Tensor)
+                                   and a.numel() <= 1 << 20 else a
+                                   for a in args], dict(kw))
+                return _fn(*args, **kw)
+            setattr(self.ops, name, rec)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            setattr(self.ops, name, fn)
+        return False
+
+
+def check_recorded(torch, ops, ref, calls) -> dict:
+    """Hold every call a ``KernelCalls`` kept against the plain versions:
+    fused_expand's d2 within DTOL and its attr words bit for bit,
+    gather_dist_tile and bitset_dist bit for bit. Returns, per kernel,
+    the signatures held and the largest d2 error."""
+    out = {}
+    for name, seen in calls.items():
+        err = 0.0
+        for args, kw in seen.values():
+            if name == "fused_expand":
+                err = max(err, check_fused_expand(torch, ops, ref, *args,
+                                                  **kw))
+            elif name == "gather_dist_tile":
+                e, exact = check_scan_tile(torch, ops, ref, *args, **kw)
+                if not exact:
+                    raise AssertionError(
+                        f"gather_dist_tile is not bit-exact at xb"
+                        f"{tuple(args[0].shape)} q{tuple(args[2].shape)} "
+                        f"{kw}")
+                err = max(err, e)
+            elif name == "bitset_dist":
+                err = max(err, check_bitset(torch, ops, ref, *args))
+        out[name] = dict(signatures=len(seen), max_abs_err=err)
+    return out
+
+
 def profile_main_path(torch, run, trace_path: str) -> dict:
     """Device busy share and the top kernels of one traced run."""
     from torch.profiler import ProfilerActivity, profile
@@ -421,7 +522,7 @@ def run_slice_d(torch, np, idx, ds, q_all, gt, f32_recall, f32_qps, kernels,
         of the second run)."""
         timings = {}
 
-        def on_group(g, res, secs):
+        def on_group(g, res, stats, secs):
             timings[g.route] = (len(g.ids), secs)
 
         ops.reset_launches()
@@ -654,6 +755,382 @@ def run_slice_d(torch, np, idx, ds, q_all, gt, f32_recall, f32_qps, kernels,
                             int8_recall=rec8c, int8_first_s=int8_s)
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"[slice D] {out['phase_s']:.1f} s")
+    return out
+
+
+def run_slice_e(torch, np, idx, ds, q_all, gt, f32_qps, K, LS,
+                MI) -> dict:
+    """Slice E over slice A's built index: calibrate the cost model on the
+    card, route slice A's batch by it, serve the batch with telemetry
+    (introspection, spans, shadow audits), and let the model decide a
+    streaming index's compaction. Every gate raises; returns the phase's
+    report."""
+    import tempfile
+    from dataclasses import asdict
+    from repro_torch.core.filters import subset_table
+    from repro_torch.core.ground_truth import exact_filtered_knn
+    from repro_torch.core.recall import recall_at_k
+    from repro_torch.cost import CostRegistry, fit, run_calibration, to_json
+    from repro_torch.cost.calibrate import FULL_GRID
+    from repro_torch.cost.model import ALL_ROUTES
+    from repro_torch.kernels import ops, ref
+    from repro_torch.obs import (Telemetry, heldout_error,
+                                 introspection_summary, load_jsonl,
+                                 render_health, sel_band)
+    from repro_torch.serve.planner import PlannerConfig, explain
+    from repro_torch.stream import StreamingJAGIndex
+
+    dev = idx.device
+    N, D = idx.xb.shape
+    out = {}
+    t_phase = time.perf_counter()
+    gt_ids = gt.ids.cpu().numpy()
+
+    def recall_of(res, want, rows=None):
+        rec = recall_at_k(res.ids.cpu().numpy(),
+                          res.primary.cpu().numpy() == 0.0, want)
+        return float(rec.mean() if rows is None else rec[rows].mean())
+
+    def timed_batch(**kw):
+        """Two runs of slice A's batch; (result, plan, QPS per route and
+        batch QPS of the second run, launches of the first)."""
+        timings = {}
+
+        def og(g, res, stats, secs):
+            timings[g.route] = (len(g.ids), secs)
+
+        ops.reset_launches()
+        res, p = idx.search_auto(q_all, ds.filt, k=K, ls=LS, max_iters=MI,
+                                 layout="fused", return_plan=True,
+                                 on_group=og, **kw)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        timings.clear()
+        t0 = time.perf_counter()
+        res2 = idx.search_auto(q_all, ds.filt, k=K, ls=LS, max_iters=MI,
+                               layout="fused", on_group=og, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if not torch.equal(res.ids, res2.ids):
+            raise AssertionError("two runs of slice E's batch disagree")
+        return (res, p, {r: n / s for r, (n, s) in timings.items()},
+                len(q_all) / wall, launches)
+
+    # -- 1. calibration on the card (calibrate() is these two calls; the
+    # observations are kept to be checked) ----------------------------------
+    grid = FULL_GRID
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with KernelCalls(torch, ops, ("fused_expand", "gather_dist_tile",
+                                  "bitset_dist")) as cal_calls:
+        cal = run_calibration(device=dev, **grid)
+    model = fit(cal.observations, cal.meta)
+    torch.cuda.synchronize()
+    out["calibrate_s"] = time.perf_counter() - t0
+    out["calibrate_launches"] = dict(ops.LAUNCHES)
+    # the grid's kernels run at widths slice A's checks do not reach (d 32
+    # and 64: fused_expand rows of 34 and 66 words): each call signature
+    # the calibration made, held against the plain version on its inputs
+    out["calibrate_checks"] = check_recorded(torch, ops, ref,
+                                             cal_calls.calls)
+    del cal_calls
+    log(f"[slice E] the calibration's kernel calls against their plain "
+        f"versions (distinct signatures, max d2 error): "
+        f"{out['calibrate_checks']}")
+    for name in ("fused_expand", "gather_dist_tile"):
+        if not out["calibrate_checks"][name]["signatures"]:
+            raise AssertionError(f"the calibration made no {name} call")
+    bad = [o for o in cal.observations
+           if not (np.isfinite(o.us) and o.us > 0 and np.isfinite(o.n_dist))]
+    if bad:
+        raise AssertionError(f"{len(bad)} calibration observations are not "
+                             f"finite and positive: {bad[:3]}")
+    if not model.covers(ALL_ROUTES, "us"):
+        raise AssertionError(f"the model covers {model.routes()}, not "
+                             f"{ALL_ROUTES}")
+    if model.meta["backend"] != "cuda":
+        raise AssertionError(f"model backend {model.meta['backend']!r}")
+    with tempfile.TemporaryDirectory() as tmp:
+        reg = CostRegistry(tmp)
+        reg.save(model)
+        back = reg.load("cuda")
+        if back is None or to_json(back) != to_json(model):
+            raise AssertionError("CostRegistry did not round trip the model")
+    log(f"[slice E] calibration on the card ({len(cal.observations)} "
+        f"observations; grid ns {grid['ns']} ds {grid['ds']} lss "
+        f"{grid['lss']} b {grid['b']} delta_ns {grid['delta_ns']} repeats "
+        f"{grid['repeats']}): {out['calibrate_s']:.1f} s, builds "
+        f"{cal.meta['builds']}; launches {out['calibrate_launches']}")
+    for route in ALL_ROUTES:
+        log(f"[slice E]   fit {route}: {model.fit_stats.get(route)}; us "
+            f"coef {[round(c, 4) for c in model.coef[route]['us']]}")
+    out["fit_stats"] = model.fit_stats
+    out["model"] = json.loads(to_json(model))
+
+    # -- 2. slice A's batch routed by the model ------------------------------
+    _, static_p, static_qps, static_bqps, _ = timed_batch()
+    idx.attach_cost_model(model)
+    res, p, qps, bqps, launches = timed_batch()
+    counts = {g.route: len(g.ids) for g in p.groups}
+    static_counts = {g.route: len(g.ids) for g in static_p.groups}
+    router = idx.executor.cost_router(k=K, ls=LS, filt=ds.filt)
+    log(f"[slice E] routed by the model: {counts} (static plan "
+        f"{static_counts}); launches {launches}")
+    for g in p.groups:
+        pred = {r: round(c, 2) for r, c in router.costs(
+            g.selectivity).items()}
+        log(f"[slice E]   {g.route}: {len(g.ids)} queries at median sel "
+            f"{g.selectivity:.5f}, predicted us/query {pred}")
+    log(f"[slice E] explain: {explain(p)}")
+    groups = {g.route: g.ids for g in p.groups}
+    if "prefilter" in groups and not np.array_equal(
+            res.ids.cpu().numpy()[groups["prefilter"]],
+            gt_ids[groups["prefilter"]]):
+        raise AssertionError("model-routed prefilter ids differ from the "
+                             "exact scan")
+    rec = {r: recall_of(res, gt_ids, ids) for r, ids in groups.items()}
+    batch_rec = recall_of(res, gt_ids)
+    if "graph" in rec and rec["graph"] < RECALL_MIN:
+        raise AssertionError(f"model-routed graph recall {rec['graph']:.4f}"
+                             f" < {RECALL_MIN}")
+    if batch_rec < RECALL_MIN:
+        raise AssertionError(f"model-routed batch recall {batch_rec:.4f} < "
+                             f"{RECALL_MIN}")
+    log(f"[slice E] model-routed recall@{K} per route {rec}, batch "
+        f"{batch_rec:.4f}; QPS {qps}, batch {bqps:.1f} queries/s (static "
+        f"plan in this process: {static_qps}, batch {static_bqps:.1f}; "
+        f"slice A {f32_qps})")
+    out["routed"] = dict(counts=counts, static_counts=static_counts,
+                         costs=p.costs, recall=rec, batch_recall=batch_rec,
+                         qps=qps, batch_qps=bqps, static_qps=static_qps,
+                         static_batch_qps=static_bqps, launches=launches,
+                         explain=explain(p))
+
+    # -- 3. telemetry at full width (the static plan, so that every route
+    # and the graph route's introspection run) -------------------------------
+    static = PlannerConfig()
+    tel = Telemetry(introspect=True, spans=True, shadow=0.05)
+    stats = {}
+
+    def keep_stats(g, r, st, s):
+        if st is not None:
+            stats[g.route] = (g.ids, st, r)
+
+    # in turns, telemetry on then off, twice: the same plan each time
+    walls, off_walls, results, plans = [], [], [], []
+    for _ in range(2):
+        idx.attach_telemetry(tel)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r_, p_ = idx.search_auto(q_all, ds.filt, k=K, ls=LS, max_iters=MI,
+                                 layout="fused", planner=static,
+                                 return_plan=True, on_group=keep_stats)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        results.append(r_)
+        plans.append(p_)
+        idx.attach_telemetry(None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = idx.search_auto(q_all, ds.filt, k=K, ls=LS, max_iters=MI,
+                                layout="fused", planner=static)
+        torch.cuda.synchronize()
+        off_walls.append(time.perf_counter() - t0)
+    traces = list(tel.traces)
+    nq = len(q_all)
+    if len(traces) != 2 * nq or len({t.qid for t in traces}) != 2 * nq:
+        raise AssertionError(f"{len(traces)} traces for 2 calls of {nq}")
+    for c in range(2):
+        # traces follow the groups, each group's queries in batch order
+        order = np.concatenate([g.ids for g in plans[c].groups])
+        for t, qi in zip(traces[c * nq:(c + 1) * nq], order):
+            if (t.band, t.route) != (plans[c].routes[qi],
+                                     plans[c].realized[qi]):
+                raise AssertionError(f"trace {t.qid} ({t.band}, {t.route}) "
+                                     f"differs from query {qi}'s plan")
+    g_ids, g_stats, g_res = stats["graph"]
+    if not torch.equal(g_stats.hops, g_res.n_expanded):
+        raise AssertionError("hops differ from n_expanded")
+    graph_traces = [t for t in traces[nq:] if t.band == "graph"]
+    if [t.n_expanded for t in graph_traces] != g_stats.hops.tolist():
+        raise AssertionError("traced n_expanded differs from hops")
+    # the same plan without telemetry: ids and keys bit for bit
+    for f in ("ids", "primary", "secondary", "n_expanded", "n_dist"):
+        if not torch.equal(getattr(results[1], f), getattr(plain, f)):
+            raise AssertionError(f"{f} with telemetry (introspect) differs "
+                                 "from the same plan without it")
+    ops.reset_launches()
+    n_audit = tel.shadow.flush()
+    torch.cuda.synchronize()
+    shadow_launches = dict(ops.LAUNCHES)
+    if shadow_launches["gather_dist_tile"] <= 0:
+        raise AssertionError("the shadow oracle launched no gather_dist_tile")
+    table = tel.shadow.recall_table()
+    pre = [r for r in table if r["route"] == "prefilter"]
+    if not pre or any(r["recall"] != 1.0 for r in pre):
+        raise AssertionError(f"prefilter shadow recall not 1.0: {pre}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "traces.jsonl")
+        tel.traces.dump_jsonl(path)
+        if [asdict(t) for t in load_jsonl(path)] != [asdict(t)
+                                                    for t in traces]:
+            raise AssertionError("the trace JSONL does not load back equal")
+    health = render_health(tel.health_report())
+    bands = {}
+    for t in traces:
+        if t.dead_ends is not None:
+            b = bands.setdefault(sel_band(t.sel), [0, 0, 0, 0])
+            b[0] += 1
+            b[1] += t.dead_ends
+            b[2] += t.n_expanded
+            b[3] += t.sat_step
+    band_rows = {b: dict(queries=v[0], dead_end_rate=v[1] / max(v[2], 1),
+                         mean_hops=v[2] / v[0], mean_sat_step=v[3] / v[0])
+                 for b, v in sorted(bands.items())}
+    log(f"[slice E] telemetry: {len(traces)} traces over 2 calls; "
+        f"introspection {introspection_summary(traces)}")
+    log(f"[slice E] dead ends per selectivity band (graph route, 1M rows): "
+        f"{band_rows}")
+    log(f"[slice E] shadow audits {n_audit} (launches of the oracle's scan "
+        f"{shadow_launches}): {table}")
+    log(f"[slice E] span totals us (2 calls): "
+        f"{ {k: round(v, 1) for k, v in tel.spans.totals_us().items()} }")
+    for line in health.splitlines():
+        log(f"[slice E] health | {line}")
+    err_grid = heldout_error(model, traces)
+    recal = tel.maybe_recalibrate(idx, require_drift=False)
+    err_after = heldout_error(idx.cost_model, traces)
+    log(f"[slice E] held-out median relative error of the grid model on "
+        f"these traces {err_grid:.4f}; maybe_recalibrate: swapped "
+        f"{recal.swapped} ({recal.reason}); after it {err_after:.4f}")
+    on_qps, off_qps = nq / walls[1], nq / off_walls[1]
+    log(f"[slice E] batch QPS with telemetry {on_qps:.1f}, without "
+        f"{off_qps:.1f} (first turn {nq / walls[0]:.1f}, "
+        f"{nq / off_walls[0]:.1f})")
+    recounts = None
+    if recal.swapped:
+        _, rp = idx.search_auto(q_all, ds.filt, k=K, ls=LS, max_iters=MI,
+                                layout="fused", return_plan=True)
+        recounts = {g.route: len(g.ids) for g in rp.groups}
+        log(f"[slice E] routes under the refit model: {recounts}")
+    out["telemetry"] = dict(
+        dead_ends_by_band=band_rows,
+        introspection=introspection_summary(traces), shadow=table,
+        shadow_audits=n_audit, shadow_launches=shadow_launches,
+        spans_us=tel.spans.totals_us(), heldout_grid=err_grid,
+        recal_swapped=recal.swapped, recal_reason=recal.reason,
+        heldout_after=err_after, routes_after_recal=recounts,
+        qps_on=on_qps, qps_off=off_qps, first_qps_on=nq / walls[0],
+        first_qps_off=nq / off_walls[0])
+    idx.attach_cost_model(None)
+    del results, plain, res
+
+    # -- 4. cost-driven compaction ------------------------------------------
+    n_batches, step = E_INSERTS, E_INSERT_ROWS
+    M = n_batches * step
+    rng = np.random.default_rng(1)
+    std = idx.xb.std(0).cpu().numpy()
+    src = rng.integers(0, N, M)
+    xv = (idx.xb[torch.as_tensor(src, device=dev)].cpu().numpy()
+          + rng.normal(size=(M, D)) * 0.1 * std).astype(np.float32)
+    bits = rng.random((M, ds.attr.n_bits)) < 0.5
+    sidx = StreamingJAGIndex(idx, compact_frac=0.25)
+    sidx.attach_cost_model(model)
+    evens = []
+    compacted_at = None
+    for i in range(n_batches):
+        rows = slice(i * step, (i + 1) * step)
+        seen = sidx.delta.n + step           # the delta the insert judges
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = sidx.insert(xv[rows], subset_table(bits[rows], ds.attr.n_bits,
+                                                 device=dev))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if rep["compacted"]:
+            # the decision the insert took, on the rows it saw: a wrapper
+            # holding the same delta
+            compacted_at = i
+            probe = StreamingJAGIndex(idx, compact_frac=0.25)
+            probe.attach_cost_model(model)
+            tail = slice((i + 1) * step - seen, (i + 1) * step)
+            probe.delta.append(xv[tail], subset_table(
+                bits[tail], ds.attr.n_bits, device=dev))
+            tax, cost, fire = probe.compaction_break_even()
+            del probe
+        else:
+            tax, cost, fire = sidx.compaction_break_even()
+        if not (np.isfinite(tax) and np.isfinite(cost)):
+            raise AssertionError(f"break-even not finite: {tax}, {cost}")
+        evens.append(dict(delta_rows=seen, tax_us=tax,
+                          compact_us=cost, fires=fire,
+                          compacted=rep["compacted"], insert_s=secs))
+        log(f"[slice E] insert {i + 1}: delta {seen} rows; "
+            f"predicted tax {tax:.3f} us/query x horizon "
+            f"{sidx.query_horizon} = {tax * sidx.query_horizon / 1e6:.3f} s"
+            f" vs compaction {cost / 1e6:.3f} s: fires {fire}; compacted "
+            f"{rep['compacted']} ({secs:.2f} s)")
+    out["break_even"] = evens
+    xcat = torch.cat([idx.xb, torch.as_tensor(xv, device=dev)])
+    gt_cat = exact_filtered_knn(xcat, sidx.attr, q_all, ds.filt, k=K,
+                                use_kernel=True).ids.cpu().numpy()
+    res, p = sidx.search_auto(q_all, ds.filt, k=K, ls=LS, max_iters=MI,
+                              layout="fused", return_plan=True)
+    groups = {g.route: g.ids for g in p.groups}
+    if "prefilter" in groups and not np.array_equal(
+            res.ids.cpu().numpy()[groups["prefilter"]],
+            gt_cat[groups["prefilter"]]):
+        raise AssertionError("streamed prefilter ids differ from the exact "
+                             f"scan over {N + M} rows")
+    if "graph" in groups and recall_of(res, gt_cat, groups["graph"]) \
+            < RECALL_MIN:
+        raise AssertionError(f"streamed graph recall < {RECALL_MIN}")
+    if sidx.delta.n:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sidx.executor.merge(res, sidx.executor.delta(q_all, ds.filt, k=K),
+                            k=K)
+        torch.cuda.synchronize()
+        out["delta_merge_s"] = time.perf_counter() - t0
+        log(f"[slice E] delta scan of {sidx.delta.n} rows and merge for "
+            f"{len(q_all)} queries: {out['delta_merge_s'] * 1e3:.2f} ms "
+            f"(the model's tax at this delta: "
+            f"{evens[-1]['tax_us'] * len(q_all) / 1e3:.2f} ms a batch)")
+    # the streamed batch with shadow audits: each pending audit holds the
+    # base and delta tensors, and the flush concatenates one at a time
+    stel = sidx.attach_telemetry(Telemetry(shadow=0.05))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    for _ in range(2):
+        sidx.search_auto(q_all, ds.filt, k=K, ls=LS, max_iters=MI,
+                         layout="fused")
+    queued = torch.cuda.max_memory_allocated() - before
+    ops.reset_launches()
+    n_audit = stel.shadow.flush()
+    torch.cuda.synchronize()
+    flushed = torch.cuda.max_memory_allocated() - before
+    stable = stel.shadow.recall_table()
+    pre = [r for r in stable if r["route"].startswith("prefilter")]
+    if not pre or any(r["recall"] != 1.0 for r in pre):
+        raise AssertionError(f"streamed prefilter shadow recall not 1.0: "
+                             f"{pre}")
+    if ops.LAUNCHES["gather_dist_tile"] <= 0:
+        raise AssertionError("the streamed shadow oracle launched no "
+                             "gather_dist_tile")
+    sidx.attach_telemetry(None)
+    log(f"[slice E] streamed batch with shadow audits over {N} + "
+        f"{sidx.delta.n} rows: {n_audit} audits, {stable}; memory peak "
+        f"above the served state {queued / 2 ** 20:.1f} MiB while serving "
+        f"two calls, {flushed / 2 ** 20:.1f} MiB through the flush (one "
+        f"concatenated copy {(N + sidx.delta.n) * D * 4 / 2 ** 20:.1f} MiB)")
+    out["streamed_shadow"] = dict(audits=n_audit, table=stable,
+                                  peak_serving_mib=queued / 2 ** 20,
+                                  peak_flush_mib=flushed / 2 ** 20)
+    del xcat, res
+    out["compacted_at_insert"] = compacted_at
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[slice E] {out['phase_s']:.1f} s")
     return out
 
 
@@ -1045,7 +1522,7 @@ def main(argv=None) -> int:
 
     timings = {}
 
-    def on_group(g, res, secs):
+    def on_group(g, res, stats, secs):
         timings[g.route] = (len(g.ids), secs)
 
     ops.reset_launches()
@@ -1139,10 +1616,14 @@ def main(argv=None) -> int:
     # -- 5. slice D: int8 and streaming over slice A's index ----------------
     report["slice_d"] = run_slice_d(torch, np, idx, ds, q_all, gt, recall,
                                     qps, kernels, K, LS, MI)
+
+    # -- 6. slice E: cost model, cost routing and telemetry -----------------
+    report["slice_e"] = run_slice_e(torch, np, idx, ds, q_all, gt, qps, K,
+                                    LS, MI)
     del idx, gt
     torch.cuda.empty_cache()
 
-    # -- 6. slice B: Boolean validity through the deficit kernel -----------
+    # -- 7. slice B: Boolean validity through the deficit kernel -----------
     t0 = time.perf_counter()
     dsb = synthetic.msturing_bool(n=100_000, d=D, b=128, n_vars=15,
                                   device=dev)
@@ -1165,7 +1646,7 @@ def main(argv=None) -> int:
         f"{time.perf_counter() - t0:.1f} s")
     report["slice_b"] = {"launches": lb, "hits": n_valid}
 
-    # -- 7. slice C: dense-LM serving ------------------------------------
+    # -- 8. slice C: dense-LM serving ------------------------------------
     del xbb, qb, got, want
     torch.cuda.empty_cache()
     full = LM_SHAPES["prefill_32k"]

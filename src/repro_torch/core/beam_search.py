@@ -38,6 +38,22 @@ class SearchResult(NamedTuple):
     n_dist: torch.Tensor      # int32 [B]
 
 
+class TraversalStats(NamedTuple):
+    """Per-query traversal counters (``introspect=True``), computed on the
+    device from tensors the loop already holds.
+
+      hops      : beam expansions performed (== SearchResult.n_expanded)
+      sat_step  : 1-based iteration at which the beam last improved (a new
+                  candidate entered the kept ls slots); 0 = seeds only
+      dead_ends : iterations where the lane was active but no filter-valid
+                  candidate (primary == 0) entered the beam: the paper's
+                  navigational dead ends, counted
+    """
+    hops: torch.Tensor        # int32 [B]
+    sat_step: torch.Tensor    # int32 [B]
+    dead_ends: torch.Tensor   # int32 [B]
+
+
 def _mask_dup_within_row(ids: torch.Tensor) -> torch.Tensor:
     """True where ids[b, j] duplicates an earlier entry of the same row."""
     eq = ids[:, :, None] == ids[:, None, :]
@@ -61,7 +77,8 @@ def greedy_search(graph: torch.Tensor,      # int32 [N, R] (-1 sentinel)
                   key_fn: KeyFn,
                   *, ls: int, k: int, max_iters: int,
                   dist_fn=gathered_d2, expand_fn=None,
-                  fetch_fn=None, dedup: str = "bitmap") -> SearchResult:
+                  fetch_fn=None, dedup: str = "bitmap",
+                  introspect: bool = False):
     """GreedySearch under a lexicographic comparator.
 
     ``expand_fn(p int32[B]) -> int32[B, C]`` overrides the 1-hop neighbour
@@ -78,6 +95,11 @@ def greedy_search(graph: torch.Tensor,      # int32 [N, R] (-1 sentinel)
     "scan" = compare against beam ∪ expansion log only (no N-sized state;
     an evicted unexpanded candidate may be revisited, which costs work but
     never correctness).
+
+    ``introspect=True`` returns ``(SearchResult, TraversalStats)``. The
+    merge sort then carries one more payload, a beam (0) or candidate (1)
+    tag, through the same stable two-key sort, so the kept ids and keys
+    are those of the untagged sort bit for bit.
     """
     N = xb.shape[0]
     B = queries.shape[0]
@@ -126,6 +148,9 @@ def greedy_search(graph: torch.Tensor,      # int32 [N, R] (-1 sentinel)
     n_expanded = torch.zeros((B,), dtype=torch.int32, device=dev)
     n_dist = torch.ones((B,), dtype=torch.int32, device=dev)
     rows = torch.arange(B, device=dev)
+    if introspect:
+        sat_step = torch.zeros((B,), dtype=torch.int32, device=dev)
+        dead_ends = torch.zeros((B,), dtype=torch.int32, device=dev)
 
     for it in range(max_iters):
         if it % CHECK_EVERY == 0 and bool(beam_vis.all()):
@@ -164,10 +189,22 @@ def greedy_search(graph: torch.Tensor,      # int32 [N, R] (-1 sentinel)
 
         # --- merge + truncate to ls (masked candidates are visited, so
         # they never block or expand) ---------------------------------------
-        m_p, m_s, m_ids, m_vis = _sort_beam(
-            torch.cat([beam_p, cp], dim=1), torch.cat([beam_s, cs], dim=1),
-            torch.cat([beam_ids, c_ids], dim=1),
-            torch.cat([beam_vis, ~new], dim=1))
+        merged = (torch.cat([beam_p, cp], dim=1),
+                  torch.cat([beam_s, cs], dim=1),
+                  torch.cat([beam_ids, c_ids], dim=1),
+                  torch.cat([beam_vis, ~new], dim=1))
+        if introspect:
+            tag = torch.cat([torch.zeros_like(beam_ids),
+                             torch.ones_like(c_ids)], dim=1)
+            m_p, m_s, m_ids, m_vis, m_tag = lex_sort(*merged, tag)
+            entered = (m_tag[:, :ls] == 1) & (m_ids[:, :ls] >= 0)
+            improved = active & torch.any(entered, dim=1)
+            valid_in = active & torch.any(entered & (m_p[:, :ls] == 0.0),
+                                          dim=1)
+            sat_step = torch.where(improved, it + 1, sat_step)
+            dead_ends += (active & ~valid_in).to(torch.int32)
+        else:
+            m_p, m_s, m_ids, m_vis = _sort_beam(*merged)
         beam_p, beam_s = m_p[:, :ls], m_s[:, :ls]
         beam_ids = m_ids[:, :ls]
         beam_vis = m_vis[:, :ls].contiguous()
@@ -179,5 +216,8 @@ def greedy_search(graph: torch.Tensor,      # int32 [N, R] (-1 sentinel)
     fs = torch.where(keep, beam_s, INF)
     fids = torch.where(keep, beam_ids, -1)
     fp, fs, fids = lex_sort(fp, fs, fids)
-    return SearchResult(fids[:, :k], fp[:, :k], fs[:, :k], vlog,
-                        n_expanded, n_dist)
+    result = SearchResult(fids[:, :k], fp[:, :k], fs[:, :k], vlog,
+                          n_expanded, n_dist)
+    if introspect:
+        return result, TraversalStats(n_expanded, sat_step, dead_ends)
+    return result

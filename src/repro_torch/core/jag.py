@@ -17,6 +17,7 @@ from __future__ import annotations
 import ast
 import dataclasses
 import re
+import time
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -123,6 +124,9 @@ class JAGIndex:
         self._executor = None                # serve.Executor, built lazily
         self._fused = {}                     # vec_dtype -> serve.FusedLayout
         self._q8 = None                      # (codes, scale, norms) cache
+        self.cost_model = None               # repro_torch.cost model | None
+        self.cost_metric = "us"              # routing objective: us | n_dist
+        self.telemetry = None                # repro_torch.obs.Telemetry | None
 
     @property
     def device(self) -> torch.device:
@@ -181,6 +185,39 @@ class JAGIndex:
             self._q8 = (codes, scale, dequant_sq_norms(codes, scale))
         return self._q8
 
+    def attach_cost_model(self, model, metric: str = "us") -> None:
+        """Attach (or detach, with None) a calibrated ``repro_torch.cost``
+        model: ``search_auto`` then routes each query to the argmin of
+        predicted cost instead of the static thresholds, and :meth:`save`
+        keeps the model in the archive. Each route's results are unchanged.
+        ``metric`` is the objective: ``"us"`` (measured wall time) or
+        ``"n_dist"`` (distance computations, the paper's metric)."""
+        from ..cost.model import METRICS
+        if metric not in METRICS:
+            raise ValueError(f"metric must be one of {METRICS}, "
+                             f"got {metric!r}")
+        self.cost_model = model
+        self.cost_metric = metric
+
+    def attach_telemetry(self, telemetry=...):
+        """Attach (or detach, with None) a ``repro_torch.obs.Telemetry``;
+        with no argument a default one. Returns what was attached.
+
+        Every :meth:`search_auto` call then records one trace per query
+        (band, realized route, selectivity, predicted costs, wall us,
+        n_dist, n_expanded) and ticks the route counters; the executor
+        reports new route keys and epoch rolls. All of it runs on the host
+        after each group has finished on the device.
+        """
+        if telemetry is ...:
+            from ..obs import Telemetry
+            telemetry = Telemetry()
+        self.telemetry = telemetry
+        ex = self.executor
+        ex.miss_hook = None if telemetry is None else telemetry.on_executor_miss
+        ex.roll_hook = None if telemetry is None else telemetry.on_epoch_roll
+        return telemetry
+
     # -- query (Algorithm 2) ------------------------------------------------
     def search(self, queries, filt, k: int = 10, ls: int = 64,
                max_iters: int = 0, layout: str = "default") -> SearchResult:
@@ -222,43 +259,102 @@ class JAGIndex:
         plan)``, the plan's ``realized`` field naming the executed route
         variant (``graph[fused,int8]``; a streaming index appends
         ``+delta``). ``layout``/``dtype`` select the graph route's serving
-        variant in either mode. ``on_group(group, result, seconds)``
-        (per_query mode) is called after each group has finished on the
-        device.
+        variant in either mode.
+
+        With a calibrated cost model attached (:meth:`attach_cost_model`)
+        routes are the argmin of predicted cost (``Executor.cost_router``);
+        an explicit ``planner=`` wins over the model. With telemetry
+        attached (:meth:`attach_telemetry`) each group is waited for and
+        timed, and the call is recorded per query; ``Telemetry(introspect=
+        True)`` serves graph groups through the introspective route (same
+        ids and keys, plus ``TraversalStats``), and its spans time the
+        pipeline. ``on_group(group, result, stats, seconds)`` is called
+        after each group has finished on the device (``stats`` None unless
+        telemetry introspects).
         """
-        from ..serve.dispatch import (dispatch_per_query, route_descriptor,
-                                      run_route)
-        from ..serve.planner import PlannerConfig, plan, plan_per_query
+        from ..serve.dispatch import (_span, dispatch_per_query,
+                                      route_descriptor, run_route)
+        from ..serve.planner import (GroupPlan, PlannerConfig, plan,
+                                     plan_per_query)
         filt = as_filter(filt)
         q = self._q(queries)
         cfg = planner or PlannerConfig()
         mi = max_iters or 2 * ls
-        if mode == "per_query":
-            p = plan_per_query(filt, self.attr, cfg, executor=self.executor)
-            res = dispatch_per_query(self.executor, q, filt, p, k=k, ls=ls,
-                                     max_iters=mi, layout=layout,
-                                     dtype=dtype, on_group=on_group)
-            p = p._replace(realized=tuple(
-                route_descriptor(r, layout, dtype) for r in p.routes))
-        elif mode == "batch":
-            p = plan(filt, self.attr, cfg, executor=self.executor)
-            res = run_route(self.executor, p.route, q, filt, k=k, ls=ls,
-                            max_iters=mi, layout=layout, dtype=dtype)
-            p = p._replace(realized=route_descriptor(p.route, layout, dtype))
-        else:
-            raise ValueError(f"mode must be 'per_query' or 'batch', "
-                             f"got {mode!r}")
+        # an explicit planner= is a routing instruction: a model never
+        # shadows it
+        router = (None if planner is not None
+                  else self.executor.cost_router(k=k, ls=ls, filt=filt))
+        tel = self.telemetry
+        if tel is not None and not tel.enabled:
+            tel = None
+        timed = [] if tel is not None else None
+
+        def tap(g, r, st, s):
+            if timed is not None:
+                timed.append((g, r, st, s))
+            if on_group is not None:
+                on_group(g, r, st, s)
+        og = tap if (timed is not None or on_group is not None) else None
+        introspect = bool(getattr(tel, "introspect", False))
+        spans = getattr(tel, "spans", None)
+        with _span(spans, "search_auto", mode=mode, batch=int(q.shape[0])):
+            if mode == "per_query":
+                with _span(spans, "plan"):
+                    p = plan_per_query(filt, self.attr, cfg,
+                                       executor=self.executor, router=router)
+                res = dispatch_per_query(self.executor, q, filt, p, k=k,
+                                         ls=ls, max_iters=mi, layout=layout,
+                                         dtype=dtype, on_group=og,
+                                         introspect=introspect, spans=spans)
+                p = p._replace(realized=tuple(
+                    route_descriptor(r, layout, dtype) for r in p.routes))
+            elif mode == "batch":
+                with _span(spans, "plan"):
+                    p = plan(filt, self.attr, cfg, executor=self.executor,
+                             router=router)
+                with _span(spans, f"execute:{p.route}",
+                           queries=int(q.shape[0])):
+                    t0 = time.perf_counter()
+                    out = run_route(self.executor, p.route, q, filt, k=k,
+                                    ls=ls, max_iters=mi, layout=layout,
+                                    dtype=dtype, introspect=introspect)
+                    res, stats = out if introspect else (out, None)
+                    if og is not None:
+                        if res.ids.is_cuda:
+                            torch.cuda.synchronize(res.ids.device)
+                        ids = np.arange(p.selectivity.size, dtype=np.int32)
+                        og(GroupPlan(p.route, ids, p.batch_selectivity), res,
+                           stats, time.perf_counter() - t0)
+                p = p._replace(
+                    realized=route_descriptor(p.route, layout, dtype))
+            else:
+                raise ValueError(f"mode must be 'per_query' or 'batch', "
+                                 f"got {mode!r}")
+        if timed:
+            tel.record_call(
+                self, p,
+                [(g.route, route_descriptor(g.route, layout, dtype),
+                  g.ids, r, st, s) for (g, r, st, s) in timed],
+                k=k, ls=ls, router=router, filt=filt, mode=mode)
+            # a streaming index audits after its delta merge instead
+            if tel.shadow is not None and not hasattr(self, "delta_arrays"):
+                tel.shadow_audit(self, q, filt, res, p, k=k)
         return (res, p) if return_plan else res
 
     def _q(self, queries) -> torch.Tensor:
         return to_tensor(queries, torch.float32, self.device)
 
     # -- persistence ---------------------------------------------------------
-    def _save_arrays(self) -> dict:
+    def _save_arrays(self, cost_model=..., cost_metric: str = "us") -> dict:
         """The index as a flat npz-ready dict in the reference's format
         (shared with ``repro_torch.stream``); packed fused rows are stored
-        as raw uint32 bit patterns, and any computed int8 quantization rides
-        along (``q8__*``)."""
+        as raw uint32 bit patterns, and any computed int8 quantization
+        (``q8__*``) and the cost model (``cost__*``) ride along. The model
+        is the attached one unless ``cost_model`` names another (None for
+        none)."""
+        if cost_model is ...:
+            cost_model, cost_metric = self.cost_model, self.cost_metric
+
         def host(t):
             return t.cpu().numpy()
 
@@ -271,6 +367,11 @@ class JAGIndex:
         if self._q8 is not None:
             for name, t in zip(("codes", "scale", "norms"), self._q8):
                 extra[f"q8__{name}"] = host(t)
+        if cost_model is not None:
+            from ..cost.registry import to_json
+            extra["cost__model"] = np.frombuffer(
+                to_json(cost_model).encode(), np.uint8)
+            extra["cost__metric"] = cost_metric
         attr = {}
         for k, v in self.attr.data.items():
             a = host(v)
@@ -296,9 +397,10 @@ class JAGIndex:
         ``cfg``/``build_cfg`` are decoded as the reference decodes them; an
         archive without ``build_cfg`` falls back to the defaults. The fused
         layouts' ``packed_bits`` (f32 and int8 lanes) are kept as raw
-        32-bit words, and the int8 quantization (``q8__*``) is taken as
-        stored, never recomputed. An attached cost model (``cost__*``) is
-        not read.
+        32-bit words, the int8 quantization (``q8__*``) is taken as
+        stored, never recomputed, and a cost model saved with the index
+        (``cost__model``, ``cost__metric``) is attached, so the index routes
+        as the one that was saved.
         """
         dev = resolve_device(device)
         cfg = JAGConfig(**_decode_cfg(d["cfg"]))
@@ -324,6 +426,11 @@ class JAGIndex:
         if "q8__codes" in d:
             idx._q8 = tuple(_from_numpy(d[f"q8__{name}"], dev)
                             for name in ("codes", "scale", "norms"))
+        if "cost__model" in d:
+            from ..cost.registry import from_json
+            idx.cost_model = from_json(bytes(d["cost__model"]).decode())
+            if "cost__metric" in d:
+                idx.cost_metric = str(d["cost__metric"])
         return idx
 
     @classmethod

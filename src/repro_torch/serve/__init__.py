@@ -17,13 +17,15 @@ from .executor import Executor
 from .layout import (FusedLayout, build_layout, extend_layout, load_layout,
                      save_layout)
 from .planner import (GroupPlan, Plan, PerQueryPlan, PlannerConfig, ROUTES,
-                      choose_route, estimate_selectivity, leaf_validity, plan,
+                      choose_route, clause_eval_cost, estimate_selectivity,
+                      explain, leaf_selectivities, leaf_validity, plan,
                       plan_per_query, reorder_clauses, sample_ids)
 
 __all__ = ["Executor", "FusedEngine", "FusedLayout", "GroupPlan", "Plan",
            "PerQueryPlan", "PlannerConfig", "ROUTES", "build_layout",
-           "choose_route", "dispatch_per_query", "estimate_selectivity",
-           "extend_layout", "fold_topk", "leaf_validity", "load_layout",
+           "choose_route", "clause_eval_cost", "dispatch_per_query",
+           "estimate_selectivity", "explain", "extend_layout", "fold_topk",
+           "leaf_selectivities", "leaf_validity", "load_layout",
            "make_fetch_fn", "merge_topk", "plan", "plan_per_query",
            "regroup", "reorder_clauses", "run_route", "sample_ids",
            "save_layout"]

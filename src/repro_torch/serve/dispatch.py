@@ -15,6 +15,7 @@ A SearchResult's ``vlog`` may be any width (the prefilter scan emits
 from __future__ import annotations
 
 import time
+from contextlib import nullcontext
 
 import numpy as np
 import torch
@@ -38,18 +39,24 @@ def route_descriptor(route: str, layout: str = "default",
 
 def run_route(executor, route: str, queries, filt, *, k: int,
               ls: int, max_iters: int, layout: str = "default",
-              dtype: str = "f32") -> SearchResult:
+              dtype: str = "f32", introspect: bool = False):
     """Execute one executor route by name. ``layout``/``dtype`` select the
-    graph route's serving variant; the scan and postfilter ignore them."""
+    graph route's serving variant; the scan and postfilter ignore them.
+
+    ``introspect=True`` returns ``(result, stats)``: the graph route's
+    per-query ``TraversalStats``, None on the scan and postfilter routes.
+    """
     if route == "prefilter":
-        return executor.prefilter(queries, filt, k=k)
+        res = executor.prefilter(queries, filt, k=k)
+        return (res, None) if introspect else res
     if route == "graph":
         return executor.graph(queries, filt, k=k, ls=ls,
                               max_iters=max_iters, layout=layout,
-                              dtype=dtype)
+                              dtype=dtype, introspect=introspect)
     if route == "postfilter":
-        return executor.postfilter(queries, filt, k=k, ls=ls,
-                                   max_iters=max_iters)
+        res = executor.postfilter(queries, filt, k=k, ls=ls,
+                                  max_iters=max_iters)
+        return (res, None) if introspect else res
     raise ValueError(f"unknown route {route!r}")
 
 
@@ -95,35 +102,54 @@ def regroup(parts, groups, batch: int) -> SearchResult:
                           for f in SearchResult._fields))
 
 
+def _span(spans, name: str, **args):
+    """``spans.span(...)`` when a recorder is given, else a no-op (any
+    object with a ``span(name, **args)`` context manager works)."""
+    if spans is None:
+        return nullcontext()
+    return spans.span(name, **args)
+
+
 def dispatch_per_query(executor, queries, filt, pq: PerQueryPlan, *,
                        k: int, ls: int, max_iters: int,
                        layout: str = "default", dtype: str = "f32",
-                       on_group=None) -> SearchResult:
+                       on_group=None, introspect: bool = False,
+                       spans=None) -> SearchResult:
     """Run each route group through its executor route; regroup per query.
 
-    ``on_group(group, result, wall_seconds)``, when given, is called after
-    each group's route has finished on the device (the dispatcher waits
-    for it), with the host wall time of that group; off (None), nothing
-    waits.
+    ``on_group(group, result, stats, wall_seconds)``, when given, is
+    called after each group's route has finished on the device (the
+    dispatcher waits for it), with the host wall time of that group;
+    ``stats`` is the graph route's ``TraversalStats`` when
+    ``introspect=True``, else None. ``spans`` (a ``repro_torch.obs``
+    ``SpanRecorder``) times the gather, execute and scatter stages; each
+    group's ``execute:<route>`` span waits for the device, so its time is
+    the group's. With neither (the default), nothing waits.
     """
     q = queries
+    wait = on_group is not None or spans is not None
 
     def _run(group, q_g, f_g):
-        if on_group is None:
-            return run_route(executor, group.route, q_g, f_g, k=k, ls=ls,
-                             max_iters=max_iters, layout=layout, dtype=dtype)
-        t0 = time.perf_counter()
-        res = run_route(executor, group.route, q_g, f_g, k=k, ls=ls,
-                        max_iters=max_iters, layout=layout, dtype=dtype)
-        if res.ids.is_cuda:
-            torch.cuda.synchronize(res.ids.device)
-        on_group(group, res, time.perf_counter() - t0)
+        with _span(spans, f"execute:{group.route}",
+                   queries=int(q_g.shape[0])):
+            t0 = time.perf_counter()
+            out = run_route(executor, group.route, q_g, f_g, k=k, ls=ls,
+                            max_iters=max_iters, layout=layout, dtype=dtype,
+                            introspect=introspect)
+            res, stats = out if introspect else (out, None)
+            if wait and res.ids.is_cuda:
+                torch.cuda.synchronize(res.ids.device)
+            if on_group is not None:
+                on_group(group, res, stats, time.perf_counter() - t0)
         return res
 
     if len(pq.groups) == 1:      # no split -> no gather/scatter round-trip
         return _run(pq.groups[0], q, filt)
     parts = []
     for g in pq.groups:
-        ids = torch.as_tensor(g.ids, dtype=torch.int64, device=q.device)
-        parts.append(_run(g, q[ids], filt.take(g.ids)))
-    return regroup(parts, pq.groups, q.shape[0])
+        with _span(spans, f"gather:{g.route}", queries=int(g.ids.size)):
+            ids = torch.as_tensor(g.ids, dtype=torch.int64, device=q.device)
+            q_g, f_g = q[ids], filt.take(g.ids)
+        parts.append(_run(g, q_g, f_g))
+    with _span(spans, "scatter", batch=int(q.shape[0])):
+        return regroup(parts, pq.groups, q.shape[0])

@@ -32,9 +32,15 @@ forever; a ``StreamingJAGIndex`` bumps it on every insert and compaction):
 a rolled epoch evicts every route closure, planner probe and engine, so a
 grown index never routes on a stale probe or serves a pre-compaction
 layout. ``use_kernel`` defaults to whether the index lives on the card.
+
+Telemetry hooks (``repro_torch.obs``): ``miss_hook(epoch_key)`` fires once
+per route closure built for a new key, ``roll_hook(epoch)`` once per
+epoch-driven eviction; both run on the host, outside every route.
+``cost_router`` hands the planner the attached cost model's router.
 """
 from __future__ import annotations
 
+import weakref
 from functools import partial
 from typing import Callable, Tuple
 
@@ -54,14 +60,29 @@ VEC_DTYPES = ("f32", "int8")
 
 class Executor:
     """Owns the route cache and route implementations for one index; holds
-    references to the index's tensors, never copies."""
+    references to the index's tensors, never copies.
+
+    The index owns its executor, so the executor and its route closures
+    hold the index only weakly: a dropped index frees its device memory at
+    once, without waiting for the cyclic garbage collector."""
 
     def __init__(self, index):
-        self.index = index
+        self._index = weakref.ref(index)
         self._cache: dict = {}
         self._engines: dict = {}
         self._samples: dict = {}
         self._cache_epoch: int = self.epoch
+        # telemetry hooks (repro_torch.obs), host-side only
+        self.miss_hook: Callable | None = None
+        self.roll_hook: Callable | None = None
+
+    @property
+    def index(self):
+        """The index this executor serves (alive while it is in use)."""
+        idx = self._index()
+        if idx is None:
+            raise ReferenceError("the executor's index has been dropped")
+        return idx
 
     @property
     def use_kernel(self) -> bool:
@@ -81,6 +102,8 @@ class Executor:
             self._samples.clear()
             self._engines.clear()
             self._cache_epoch = e
+            if self.roll_hook is not None:
+                self.roll_hook(e)
 
     def sample_ids(self, n: int, n_samples: int, seed: int = 0):
         """Planner probe rows, cached per executor (so per index) and per
@@ -101,6 +124,8 @@ class Executor:
         epoch_key = (self._cache_epoch,) + key
         fn = self._cache.get(epoch_key)
         if fn is None:
+            if self.miss_hook is not None:
+                self.miss_hook(epoch_key)
             fn = self._cache[epoch_key] = make()
         return fn(*args)
 
@@ -110,6 +135,31 @@ class Executor:
         self._roll_epoch()
         return tuple(self._cache) if full else tuple(
             k[1:] for k in self._cache)
+
+    def cost_router(self, *, k: int, ls: int, filt=None):
+        """The index's ``cost.CostModelRouter`` for this search shape, or
+        None (the planner's static thresholds).
+
+        The router predicts every base route's cost at the live (n, d, k,
+        ls) and folds the delta-scan tax of a streaming index's
+        ``delta.n`` rows into each prediction. A model that does not cover
+        all three base routes counts as absent. ``filt`` gives a compound
+        expression's clause count to the prefilter's log(n_clauses) term.
+        """
+        model = getattr(self.index, "cost_model", None)
+        if model is None:
+            return None
+        from ..cost.model import BASE_ROUTES, CostModelRouter
+        metric = getattr(self.index, "cost_metric", "us")
+        if not model.covers(BASE_ROUTES, metric):
+            return None
+        idx = self.index
+        delta_n = idx.delta.n if hasattr(idx, "delta_arrays") else 0
+        clauses = 1 if filt is None else n_leaves(filt)
+        return CostModelRouter(model, n=int(idx.xb.shape[0]),
+                               d=int(idx.xb.shape[1]), k=k, ls=ls,
+                               delta_n=delta_n, metric=metric,
+                               n_leaves=clauses)
 
     def engine(self, vec_dtype: str = "f32") -> FusedEngine:
         """FusedEngine over the index's packed layout, per epoch."""
@@ -121,10 +171,16 @@ class Executor:
 
     # -- graph route (JAG traversal; Algorithm 2) --------------------------
     def graph(self, queries, filt, *, k: int, ls: int, max_iters: int,
-              layout: str = "default", dtype: str = "f32") -> SearchResult:
+              layout: str = "default", dtype: str = "f32",
+              introspect: bool = False):
         """JAG traversal. int8 traverses with ``k = ls`` over the codes
         (the fused layout's lanes, or ``index.quantized()`` with the split
-        layout), then re-ranks the beam with the f32 rows."""
+        layout), then re-ranks the beam with the f32 rows.
+
+        ``introspect=True`` (its own cache-key component) returns
+        ``(SearchResult, TraversalStats)``: per-query hops, saturation step
+        and dead ends, with ids and keys bit for bit those of the standard
+        route."""
         if layout not in LAYOUTS:
             raise ValueError(f"layout must be 'default' or 'fused', "
                              f"got {layout!r}")
@@ -132,6 +188,8 @@ class Executor:
             raise ValueError(f"dtype must be 'f32' or 'int8', got {dtype!r}")
         idx = self.index
         key = ("graph", layout, dtype, k, ls, max_iters, filt.kind)
+        if introspect:
+            key = key + ("introspect",)
         fetch_fn = self.engine(dtype).fetch_fn if layout == "fused" else None
         # the split int8 route walks the codes under make_int8_dist_fn
         xs, xs_norm, dist_fn = idx.xb, idx.xb_norm, gathered_d2
@@ -139,19 +197,24 @@ class Executor:
             xs, scale, xs_norm = idx.quantized()
             dist_fn = make_int8_dist_fn(scale)
 
+        ref = self._index
+
         def make():
             def run(q, filt, xs, xs_norm, dist_fn, fetch_fn):
-                res = greedy_search(idx.graph, xs, xs_norm, idx.attr, q,
+                idx = ref()
+                out = greedy_search(idx.graph, xs, xs_norm, idx.attr, q,
                                     idx.entry, query_key_fn(filt), ls=ls,
                                     k=k if dtype == "f32" else ls,
                                     max_iters=max_iters, dist_fn=dist_fn,
-                                    fetch_fn=fetch_fn)
+                                    fetch_fn=fetch_fn, introspect=introspect)
                 if dtype == "f32":
-                    return res
+                    return out
+                res, stats = out if introspect else (out, None)
                 i, p, s = rerank_exact(idx.xb, idx.xb_norm, res.ids,
                                        res.primary, q, k)
-                return SearchResult(i, p, s, res.vlog, res.n_expanded,
-                                    res.n_dist)
+                res = SearchResult(i, p, s, res.vlog, res.n_expanded,
+                                   res.n_dist)
+                return (res, stats) if introspect else res
             return run
         return self.run(key, make, queries, filt, xs, xs_norm, dist_fn,
                         fetch_fn)
@@ -159,11 +222,12 @@ class Executor:
     # -- unfiltered traversal ----------------------------------------------
     def unfiltered(self, queries, *, k: int, ls: int,
                    max_iters: int) -> SearchResult:
-        idx = self.index
         key = ("unfiltered", "default", "f32", k, ls, max_iters, None)
+        ref = self._index
 
         def make():
             def run(q):
+                idx = ref()
                 return greedy_search(idx.graph, idx.xb, idx.xb_norm,
                                      idx.attr, q, idx.entry,
                                      unfiltered_key_fn(), ls=ls, k=k,
@@ -256,11 +320,12 @@ class Executor:
         """Unfiltered traversal keeping the ls-beam, then the k best
         filter-passing survivors. n_dist counts the traversal's distance
         computations plus the filter evaluations on the surviving beam."""
-        idx = self.index
         key = ("postfilter", "default", "f32", k, ls, max_iters, filt.kind)
+        ref = self._index
 
         def make():
             def run(q, filt):
+                idx = ref()
                 res = greedy_search(idx.graph, idx.xb, idx.xb_norm,
                                     idx.attr, q, idx.entry,
                                     unfiltered_key_fn(), ls=ls, k=ls,

@@ -1,5 +1,5 @@
 """Selectivity-adaptive query planner (counterpart of
-``repro.serve.planner``, static thresholds).
+``repro.serve.planner``).
 
 A sampled ``matches()`` probe estimates each query's filter selectivity and
 routes it to one of the executor's three routes:
@@ -15,17 +15,23 @@ selectivity. The prefilter route asks :func:`reorder_clauses` for the
 short-circuit-optimal clause order, from the per-leaf boolean sample
 vectors of :func:`leaf_validity`. The sample rows are drawn with numpy, as
 the reference draws them, so both packages probe the same rows.
+
+When the index carries a calibrated cost model
+(``JAGIndex.attach_cost_model``), both planners take a ``router``
+(``cost.CostModelRouter``, built per call by ``Executor.cost_router``) and
+each route is the argmin of predicted cost instead of the threshold
+ladder; the plan then carries the predictions (``costs``, ``cost_metric``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..core.filters import (And, AttrTable, FilterBatch, FilterExpr, Leaf,
-                            Not, Or, broadcast_rows, matches,
+                            Not, Or, broadcast_rows, describe, matches,
                             matches_sampled)
 
 ROUTES = ("prefilter", "graph", "postfilter")
@@ -60,6 +66,11 @@ class Plan(NamedTuple):
     selectivity: np.ndarray    # f32 [B] per-query estimates
     batch_selectivity: float   # the median driving the route choice
     n_sampled: int             # probe size actually used (== n for exact)
+    # predicted cost/query per route at the batch median when a cost-model
+    # router made the decision (in cost_metric units); None under the
+    # static thresholds
+    costs: Optional[Dict[str, float]] = None
+    cost_metric: Optional[str] = None    # "us" | "n_dist" | None (static)
     realized: str | None = None  # route variant that executed
 
 
@@ -77,6 +88,8 @@ class PerQueryPlan(NamedTuple):
     selectivity: np.ndarray    # f32 [B] per-query estimates
     groups: Tuple[GroupPlan, ...]
     n_sampled: int
+    costs: Optional[Dict[str, float]] = None   # as in Plan
+    cost_metric: Optional[str] = None
     realized: Tuple[str, ...] | None = None  # per-query executed variant
 
     @property
@@ -101,6 +114,15 @@ def sample_ids(n: int, n_samples: int, seed: int = 0,
     return torch.as_tensor(ids, device=device)
 
 
+def match_rate(ok: torch.Tensor) -> torch.Tensor:
+    """Mean of a boolean tensor over its last axis, in float32, as XLA's
+    ``jnp.mean`` computes it: the count times the float32 reciprocal of the
+    length, so selectivities equal the reference's bit for bit."""
+    one = torch.ones((), device=ok.device)
+    n = torch.full((), float(ok.shape[-1]), device=ok.device)
+    return ok.to(torch.float32).sum(dim=-1) * (one / n)
+
+
 def estimate_selectivity(filt, table: AttrTable,
                          ids: torch.Tensor) -> torch.Tensor:
     """Per-query selectivity estimate f32[B] from a sampled matches()
@@ -109,7 +131,16 @@ def estimate_selectivity(filt, table: AttrTable,
         ok = matches_sampled(filt, table, ids)
     else:
         ok = matches(filt, broadcast_rows(table, ids))
-    return torch.mean(ok.to(torch.float32), dim=-1)
+    return match_rate(ok)
+
+
+def leaf_selectivities(filt, table: AttrTable,
+                       ids: torch.Tensor) -> torch.Tensor:
+    """Per-leaf sampled selectivities f32[L, B], leaves in DFS order (the
+    marginal summaries benchmarks and explain-style logs report)."""
+    attrs = broadcast_rows(table, ids)
+    leaves = filt.leaves() if isinstance(filt, FilterExpr) else [filt]
+    return torch.stack([match_rate(matches(f, attrs)) for f in leaves])
 
 
 def leaf_validity(filt, table: AttrTable, ids: torch.Tensor) -> torch.Tensor:
@@ -199,13 +230,28 @@ def reorder_clauses(filt, leaf_sels):
     return _order_clauses(filt, iter(_leaf_values(leaf_sels)), True)[0]
 
 
+def clause_eval_cost(filt, leaf_sels) -> float:
+    """Expected short-circuit leaf evals per scanned point, given the
+    tree's current clause order and per-leaf selectivities or validity
+    vectors (DFS order; scalar = independence, boolean vector = joint)."""
+    return _order_clauses(filt, iter(_leaf_values(leaf_sels)), False)[2]
+
+
 def choose_route(sel: float, cfg: PlannerConfig) -> str:
-    """Threshold router over one selectivity scalar."""
+    """Threshold router over one selectivity scalar (the fallback when no
+    cost model is attached)."""
     if sel <= cfg.prefilter_max_sel:
         return "prefilter"
     if sel >= cfg.postfilter_min_sel:
         return "postfilter"
     return "graph"
+
+
+def _route_of(sel: float, cfg: PlannerConfig, router) -> str:
+    """One query's route: the cost-model argmin when a router is given,
+    else the static threshold ladder."""
+    return router.route(sel) if router is not None else choose_route(sel,
+                                                                     cfg)
 
 
 def _estimate(filt, table: AttrTable, cfg: PlannerConfig,
@@ -224,21 +270,27 @@ def _estimate(filt, table: AttrTable, cfg: PlannerConfig,
 
 
 def plan(filt, table: AttrTable, cfg: PlannerConfig = PlannerConfig(),
-         executor=None) -> Plan:
+         executor=None, router=None) -> Plan:
     """Estimate the batch's selectivity and pick ONE route for all
-    queries (by the median estimate)."""
+    queries (by the median estimate); with a ``router``, the argmin of
+    predicted cost at the median, reported in ``Plan.costs``."""
     sel, n_sampled = _estimate(filt, table, cfg, executor)
     batch_sel = float(np.median(sel))
-    return Plan(choose_route(batch_sel, cfg), sel, batch_sel, n_sampled)
+    if router is None:
+        return Plan(_route_of(batch_sel, cfg, None), sel, batch_sel,
+                    n_sampled)
+    return Plan(router.route(batch_sel), sel, batch_sel, n_sampled,
+                router.costs(batch_sel), router.metric)
 
 
 def plan_per_query(filt, table: AttrTable,
                    cfg: PlannerConfig = PlannerConfig(),
-                   executor=None) -> PerQueryPlan:
+                   executor=None, router=None) -> PerQueryPlan:
     """Band the per-query selectivity vector into route groups (positions
-    ascending within a group, so gather/scatter is a stable permutation)."""
+    ascending within a group, so gather/scatter is a stable permutation);
+    with a ``router``, each query's band is its predicted-cost argmin."""
     sel, n_sampled = _estimate(filt, table, cfg, executor)
-    routes = tuple(choose_route(float(s), cfg) for s in sel)
+    routes = tuple(_route_of(float(s), cfg, router) for s in sel)
     routes_arr = np.asarray(routes)
     groups = []
     for route in ROUTES:
@@ -246,4 +298,46 @@ def plan_per_query(filt, table: AttrTable,
         if members.size:
             groups.append(GroupPlan(route, members.astype(np.int32),
                                     float(np.median(sel[members]))))
-    return PerQueryPlan(routes, sel, tuple(groups), n_sampled)
+    if router is None:
+        return PerQueryPlan(routes, sel, tuple(groups), n_sampled)
+    return PerQueryPlan(routes, sel, tuple(groups), n_sampled,
+                        router.costs(float(np.median(sel))), router.metric)
+
+
+def _executed_note(p) -> str:
+    """Realized-route summary when it differs from the planned band names;
+    empty when the plan never ran or ran exactly as planned."""
+    realized = getattr(p, "realized", None)
+    if realized is None:
+        return ""
+    if isinstance(realized, str):
+        return "" if realized == p.route else realized
+    if tuple(realized) == tuple(getattr(p, "routes", ())):
+        return ""
+    counts: Dict[str, int] = {}
+    for name in realized:
+        counts[name] = counts.get(name, 0) + 1
+    return " ".join(f"{name}:{c}" for name, c in counts.items())
+
+
+def explain(p, cfg: PlannerConfig = PlannerConfig(), filt=None) -> str:
+    """One-line routing rationale, the reference's text. ``filt`` prepends
+    the filter expression; an ``executed[...]`` summary follows when the
+    realized routes differ from the planned band names."""
+    head = f"route={p.route} sel~{p.batch_selectivity:.4f}"
+    if filt is not None:
+        head = f"filter={describe(filt)} {head}"
+    if isinstance(p, PerQueryPlan):
+        split = " ".join(f"{g.route}:{g.ids.size}" for g in p.groups)
+        head += f" [{split}]"
+    executed = _executed_note(p)
+    if executed:
+        head += f" executed[{executed}]"
+    if p.costs is not None:
+        unit = {"us": "us", "n_dist": "DC"}.get(p.cost_metric,
+                                                p.cost_metric or "")
+        pred = " ".join(f"{r}={c:.1f}{unit}" for r, c in p.costs.items())
+        return f"{head} (n_sampled={p.n_sampled}, cost-model argmin: {pred})"
+    lo, hi = cfg.prefilter_max_sel, cfg.postfilter_min_sel
+    return (f"{head} (n_sampled={p.n_sampled}, thresholds: "
+            f"prefilter<={lo}, postfilter>={hi})")

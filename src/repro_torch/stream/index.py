@@ -14,19 +14,21 @@
 Every search merges the base result (any planner route over the graph
 segment) with the delta scan into one exact top-k per query
 (``serve.dispatch.merge_topk``): with an exact base route the result is
-the exact filtered k-NN over the concatenated database. Compaction fires
-when the delta passes ``compact_frac`` of the base rows (``compact_frac
-<= 0`` turns it off), or when :meth:`compact` is called: it re-runs the
-build's batch-insert step (core/build.py, Algorithm 3) over the delta ids,
-extends the fused f32 layout row-wise, drops the int8 state (rebuilt on
-next use: its scale is global), empties the delta and bumps the epoch.
-``save``/``load`` keep the delta rows and the epoch in the reference's
-``stream__*`` keys, so a restarted server resumes mid-stream bit for bit.
+the exact filtered k-NN over the concatenated database.
 
-Left out of this port: the reference's cost-driven compaction trigger
-(``attach_cost_model``, ``compaction_break_even``, ``delta_tax_us``) and
-its telemetry hooks; the archive neither reads nor writes ``cost__*`` or
-the cost trigger's ``stream__query_horizon``.
+Compaction is cost-driven when a calibrated ``repro_torch.cost`` model is
+attached (:meth:`attach_cost_model`, or loaded with the archive): the delta
+scan is a tax every search pays, so the index compacts once the predicted
+tax over the next ``query_horizon`` searches reaches the predicted total
+compaction cost. Without a model the delta compacts when it passes
+``compact_frac`` of the base rows; ``compact_frac <= 0`` turns automatic
+compaction off either way. :meth:`compact` re-runs the build's
+batch-insert step (core/build.py, Algorithm 3) over the delta ids, extends
+the fused f32 layout row-wise, drops the int8 state (rebuilt on next use:
+its scale is global), empties the delta and bumps the epoch.
+``save``/``load`` keep the delta rows, the epoch, the cost model and the
+query horizon in the reference's ``cost__*`` and ``stream__*`` keys, so a
+restarted server resumes mid-stream bit for bit.
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ from ..core.distances import sq_norms
 from ..core.filters import AttrTable, as_filter
 from ..core.jag import JAGConfig, JAGIndex, _from_numpy
 from ..device import resolve_device
+from ..serve.dispatch import _span
 from .delta import DeltaSegment
 
 
@@ -55,24 +58,33 @@ class StreamingJAGIndex:
 
     def __init__(self, base: JAGIndex, delta: Optional[DeltaSegment] = None,
                  *, epoch: int = 0, compact_frac: float = 0.25,
-                 n_compactions: int = 0):
+                 n_compactions: int = 0, query_horizon: int = 100_000):
         self.base = base
         self.delta = delta if delta is not None else DeltaSegment.for_table(
             base.attr, int(base.xb.shape[1]))
         self.epoch = int(epoch)
         self.compact_frac = float(compact_frac)
         self.n_compactions = int(n_compactions)
+        # the cost model and telemetry live on the wrapper (a compaction
+        # replaces .base), the model seeded from the base archive's
+        self.cost_model = base.cost_model
+        self.cost_metric = base.cost_metric
+        self.telemetry = None
+        self.query_horizon = int(query_horizon)
+        self.delta_tax_us = 0.0      # predicted delta-scan us served so far
+        self._last_k = 10            # most recent served k (merge-tax term)
         self._executor = None
         self._merged: Optional[Tuple[int, AttrTable]] = None
 
     @classmethod
     def build(cls, xb, attr: AttrTable, cfg: JAGConfig = JAGConfig(), *,
-              compact_frac: float = 0.25, verbose: bool = False,
-              device=None) -> "StreamingJAGIndex":
+              compact_frac: float = 0.25, query_horizon: int = 100_000,
+              verbose: bool = False, device=None) -> "StreamingJAGIndex":
         """Build the base graph on ``device`` (default "cuda"), then serve
         it live."""
         return cls(JAGIndex.build(xb, attr, cfg, verbose=verbose,
-                                  device=device), compact_frac=compact_frac)
+                                  device=device), compact_frac=compact_frac,
+                   query_horizon=query_horizon)
 
     # -- executor-facing surface (graph segment + live attr table) ---------
     @property
@@ -146,17 +158,62 @@ class StreamingJAGIndex:
         xv, dattr = self.delta.device()
         return xv, dattr, int(self.base.xb.shape[0])
 
+    # -- cost model (routing and the compaction break-even) ----------------
+    def attach_cost_model(self, model, metric: str = "us") -> None:
+        """Attach (or detach, with None) a calibrated model on the wrapper:
+        ``search_auto`` routes by predicted cost (see
+        ``JAGIndex.attach_cost_model``) and compaction fires at the
+        delta-tax break-even instead of ``compact_frac``."""
+        JAGIndex.attach_cost_model(self, model, metric)
+
+    def attach_telemetry(self, telemetry=...):
+        """Attach (or detach) telemetry on the wrapper's executor, where
+        the streaming epoch and caches live (see
+        ``JAGIndex.attach_telemetry``); compactions and delta scans tick
+        the same registry."""
+        return JAGIndex.attach_telemetry(self, telemetry)
+
+    def compaction_break_even(self, k: Optional[int] = None
+                              ) -> Optional[Tuple[float, float, bool]]:
+        """(delta tax us/query, compaction total us, past break-even) under
+        the attached model, or None when it covers no delta and compact
+        curve.
+
+        The delta scan (+ merge) is a tax every search pays; the predicted
+        tax over the next ``query_horizon`` searches against the predicted
+        one-off compaction cost is the trigger. ``k`` sizes the merge term;
+        it defaults to the most recently served k.
+        """
+        model = self.cost_model
+        if model is None or not model.covers(("delta", "compact")):
+            return None
+        if self.delta.n == 0:
+            return (0.0, 0.0, False)
+        from ..cost.model import delta_scan_tax
+        n, d = int(self.base.xb.shape[0]), int(self.base.xb.shape[1])
+        tax = delta_scan_tax(model, n=n, d=d,
+                             k=self._last_k if k is None else int(k),
+                             delta_n=self.delta.n)
+        cost = model.predict("compact",
+                             dict(delta_n=self.delta.n, n=n, d=d))
+        return (tax, cost, tax * self.query_horizon >= cost)
+
     # -- streaming writes --------------------------------------------------
     def _should_compact(self) -> bool:
+        """The cost break-even when calibrated, else ``compact_frac``;
+        ``compact_frac <= 0`` (auto-compaction off) wins over both."""
         if self.compact_frac <= 0:
             return False
+        be = self.compaction_break_even()
+        if be is not None:
+            return be[2]
         return self.delta.n > self.compact_frac * self.base.xb.shape[0]
 
     def insert(self, vectors, attrs: AttrTable, *,
                auto_compact: bool = True) -> dict:
         """Append a batch of (vectors, attr rows) to the delta and bump the
         epoch; no graph work happens until compaction, which the batch
-        triggers when the delta passes ``compact_frac`` of the base (with
+        triggers when :meth:`_should_compact` says so (with
         ``auto_compact``). Returns n_added, n_total, epoch, delta_rows and
         compacted."""
         before = self.delta.n
@@ -234,15 +291,33 @@ class StreamingJAGIndex:
         self._merged = None
         self.epoch += 1
         self.n_compactions += 1
+        if self.telemetry is not None and self.telemetry.enabled:
+            self.telemetry.on_compaction()
         return True
 
     # -- queries (base route + delta scan, merged exactly) -----------------
+    def _spans(self):
+        """The attached telemetry's span recorder, if any."""
+        tel = self.telemetry
+        if tel is None or not tel.enabled:
+            return None
+        return getattr(tel, "spans", None)
+
     def _with_delta(self, base_res: SearchResult, q, filt,
                     k: int) -> SearchResult:
+        if self.telemetry is not None and self.telemetry.enabled:
+            self.telemetry.on_search(delta_scanned=self.delta.n > 0)
         if self.delta.n == 0:
             return base_res
-        extra = self.executor.delta(q, filt, k=k)
-        return self.executor.merge(base_res, extra, k=k)
+        self._last_k = int(k)
+        be = self.compaction_break_even(k)
+        if be is not None:          # the predicted tax actually paid
+            self.delta_tax_us += be[0] * int(q.shape[0])
+        spans = self._spans()
+        with _span(spans, "delta", rows=self.delta.n):
+            extra = self.executor.delta(q, filt, k=k)
+        with _span(spans, "merge"):
+            return self.executor.merge(base_res, extra, k=k)
 
     def search(self, queries, filt, k: int = 10, ls: int = 64,
                max_iters: int = 0, layout: str = "default") -> SearchResult:
@@ -272,7 +347,8 @@ class StreamingJAGIndex:
         ``JAGIndex.search_auto`` over the graph segment (the planner probes
         the merged table), then the delta scan merged in, once for the
         whole batch whatever the route split. The realized route names end
-        in ``+delta`` while the delta holds rows."""
+        in ``+delta`` while the delta holds rows. An attached telemetry's
+        shadow auditor samples the merged result, the one served."""
         filt, q = as_filter(filt), self._q(queries)
         base, p = JAGIndex.search_auto(
             self, q, filt, k=k, ls=ls, max_iters=max_iters, planner=planner,
@@ -283,21 +359,29 @@ class StreamingJAGIndex:
             p = p._replace(realized=(
                 p.realized + "+delta" if isinstance(p.realized, str)
                 else tuple(r + "+delta" for r in p.realized)))
+        tel = self.telemetry
+        if (tel is not None and tel.enabled
+                and getattr(tel, "shadow", None) is not None):
+            tel.shadow_audit(self, q, filt, res, p, k=k)
         return (res, p) if return_plan else res
 
     # -- persistence -------------------------------------------------------
     def save(self, path: str) -> None:
         """One archive: the base's ``JAGIndex`` arrays (a plain
         ``JAGIndex.load`` recovers the graph segment) and the live state
-        under ``stream__*``: epoch, compaction count and fraction, and the
-        delta rows bit for bit (attr words as uint32, as the base's)."""
-        arrs = self.base._save_arrays()
+        under ``stream__*``: epoch, compaction count and fraction, query
+        horizon, and the delta rows bit for bit (attr words as uint32, as
+        the base's). The wrapper's cost model is the one saved (``cost__*``):
+        a detached model stays detached."""
+        arrs = self.base._save_arrays(self.cost_model, self.cost_metric)
         xv, attrs = self.delta.rows()
         arrs["stream__epoch"] = np.asarray(self.epoch, np.int64)
         arrs["stream__n_compactions"] = np.asarray(self.n_compactions,
                                                    np.int64)
         arrs["stream__compact_frac"] = np.asarray(self.compact_frac,
                                                   np.float64)
+        arrs["stream__query_horizon"] = np.asarray(self.query_horizon,
+                                                   np.int64)
         arrs["stream__delta_xv"] = xv
         for k, v in attrs.items():
             arrs[f"stream__delta_attr__{k}"] = (
@@ -307,8 +391,8 @@ class StreamingJAGIndex:
     @classmethod
     def load(cls, path: str, device=None) -> "StreamingJAGIndex":
         """Resume mid-stream on ``device`` (default "cuda"): epoch, delta
-        rows and search results as saved. A frozen ``JAGIndex`` archive
-        loads too, at epoch 0 with an empty delta."""
+        rows, cost model and search results as saved. A frozen
+        ``JAGIndex`` archive loads too, at epoch 0 with an empty delta."""
         dev = resolve_device(device)
         with np.load(path, allow_pickle=False) as z:
             base = JAGIndex.from_arrays(z, device=dev)
@@ -316,7 +400,9 @@ class StreamingJAGIndex:
                 return cls(base)
             idx = cls(base, epoch=int(z["stream__epoch"]),
                       compact_frac=float(z["stream__compact_frac"]),
-                      n_compactions=int(z["stream__n_compactions"]))
+                      n_compactions=int(z["stream__n_compactions"]),
+                      query_horizon=int(z["stream__query_horizon"])
+                      if "stream__query_horizon" in z else 100_000)
             xv = z["stream__delta_xv"]
             if xv.shape[0]:
                 pre = "stream__delta_attr__"

@@ -87,13 +87,13 @@ def test_cuda_fused_expand_matches_plain(sm90):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("d,A", [(100, 1), (100, 2), (100, 3), (200, 2),
-                                 (255, 1)])
+                                 (255, 1), (32, 1), (64, 1)])
 @pytest.mark.parametrize("C", [1, 7, 144, 145])
 @pytest.mark.parametrize("B", [1, 315])
 def test_cuda_fused_expand_shapes(sm90, d, A, C, B):
     """Row widths of 102, 103 and 104 words (the kernel reads them in
     pairs, singly and in fours), rows wider than one pass of 128 words (203
-    and 257), C on both sides of the main path's 144, ids out of range
+    and 257), the calibration grid's 34 and 66, C on both sides of the main path's 144, ids out of range
     (clamped) and attr words that are a NaN payload, all ones or the sign
     bit alone. Each case also runs on a copy of the table that starts one
     float past a 16-byte boundary, where only single-word loads are
@@ -190,6 +190,53 @@ def test_cuda_delta_route_kernels_match_plain(sm90, n_delta):
 
 
 @pytest.mark.gpu
+def test_cuda_time_route_waits_for_the_card(sm90):
+    """``cost.time_route`` times a call to the end of its work on the card:
+    a kernel that spins for about 1e8 clocks reads tens of milliseconds,
+    where its launch alone returns in microseconds."""
+    import time
+    from repro_torch.cost import time_route
+    cycles = 100_000_000
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda._sleep(cycles)
+    launch_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    _, dt = time_route(lambda: torch.cuda._sleep(cycles), warmup=1,
+                       repeats=3)
+    assert dt > 10 * launch_s and dt > 0.02, (dt, launch_s)
+
+
+@pytest.mark.gpu
+def test_cuda_introspection_fused_bitwise(sm90):
+    """The introspective graph route on the card, fused layout: the same
+    ids, keys and counts as the standard route bit for bit, hops equal to
+    n_expanded, and fused_expand launched."""
+    from repro_torch.core.jag import JAGConfig, JAGIndex
+    rng = np.random.default_rng(5)
+    N, d, B, L = 3000, 100, 64, 30
+    bits = rng.random((N, L)) < 0.5
+    idx = JAGIndex.build(rng.normal(size=(N, d)).astype(np.float32),
+                         subset_table(bits, L, device=sm90),
+                         JAGConfig(degree=16, ls_build=32, batch_size=512,
+                                   cand_pool=64), device=sm90)
+    q = _t(rng.normal(size=(B, d)).astype(np.float32)).to(sm90)
+    fb = np.zeros((B, L), bool)
+    fb[:, :2] = True
+    filt = subset_filters(fb, L, device=sm90)
+    ex = idx.executor
+    std = ex.graph(q, filt, k=10, ls=64, max_iters=128, layout="fused")
+    ops.reset_launches()
+    res, st = ex.graph(q, filt, k=10, ls=64, max_iters=128, layout="fused",
+                       introspect=True)
+    assert ops.LAUNCHES["fused_expand"] > 0
+    for f in std._fields:
+        assert torch.equal(getattr(res, f), getattr(std, f)), f
+    assert torch.equal(st.hops, std.n_expanded)
+    assert bool((st.dead_ends <= st.hops).all())
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("B,dp,tile", [
     (37, 104, 4096),      # B not a multiple of the 64-lane block
     (1, 104, 4096),
@@ -199,6 +246,10 @@ def test_cuda_delta_route_kernels_match_plain(sm90, n_delta):
     (37, 104, 60),        # tiles below one block: a small delta's scan
     (70, 8, 1),
     (1, 104, 1),
+    (64, 32, 4096),       # the calibration grid's scans (d 32 and 64, b 64)
+    (64, 64, 4096),
+    (64, 32, 256),        # and its delta scans (256 and 1024 rows)
+    (64, 64, 1024),
 ])
 def test_cuda_gather_dist_tile_bit_exact(sm90, B, dp, tile):
     rng = np.random.default_rng(5)
