@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port of JAG (``src/repro_torch``) on one H100.
 
     python3 chip_smoke.py [--n N] [--degree R] [--ls-build L] [--batch-size B]
-                          [--cand-pool C] [--seed S] [--out report.json]
-                          [--profile trace.json]
+                          [--cand-pool C] [--f-n N] [--f-sift-n N] [--seed S]
+                          [--out report.json] [--profile trace.json]
 
 Phases, in order; any failure ends the script with a non-zero exit and no
 result line:
@@ -118,11 +118,47 @@ result line:
    streaming index: the flush launches ``gather_dist_tile`` and the
    prefilter's shadow recall is 1.0; the card's memory peak above the
    served state is printed, while serving and through the flush.
-7. Slice B, the Boolean call site of the deficit kernel: msturing_bool
+7. Slice F, the paper's baselines and sharded serving, on data of their
+   own (budget 240 s; ``--f-n``/``--f-sift-n`` cut it): msturing_subset
+   (N = 200,000, d = 100, 30 bits, 1024 queries with 0 to 12 required
+   bits, seed 5) and sift_like (N = 120,000, d = 128, 12 labels, 1024
+   queries, seed 6), built at degree 64, ls_build 96, cand_pool 192, batch
+   8192: the JAG union index, ``build_unfiltered`` (RWalks' diffusion over
+   it: m 5, depth 3, h 0.1), ``ShardedJAGIndex`` of 4 shards of 50,000
+   rows on ``[cuda:0] * 4`` and ``StitchedLabelIndex`` over sift_like;
+   each build's seconds printed. F1: the batch at k = 10, ls = 64 through
+   JAG ``search`` and ``search_auto``, ``post_filter_search``,
+   ``binary_search``, ``acorn_search`` and ``rwalks_search`` over the
+   unfiltered index (``benchmarks/common.py``'s wiring), the same
+   post-filtering over JAG's graph (search_auto's postfilter route), and
+   the stitched index on sift_like; per algorithm and required-bits band,
+   recall@10 against the card's exact scan, QPS of a second run (the band
+   alone, host clock around synchronized work) and mean n_dist. Gates:
+   every id returned with primary 0 passes its filter (``matches`` on the
+   card); at selectivity 1 post_filter returns the unfiltered traversal's
+   ids on the same graph, and post-filtering over JAG's graph reaches
+   recall above 0.9 there; at selectivity under 0.02 JAG's graph recall
+   exceeds post_filter's by more than 0.15; search_auto's batch recall at
+   least 0.80; the stitched index's above 0.9. F2: S = 1
+   (``from_shards([jag])``, no copy) equals ``jag.search_auto`` bit for
+   bit under the default and force-prefilter planners (vlog width 0 on the
+   traversal routes); S = 4 under the force-prefilter planner, per_query
+   and batch, equals the union index on every field bit for bit, with the
+   sharded path's ``gather_dist_tile`` and ``bitset_dist`` launches
+   counted ("sharded") and each distinct call signature held against the
+   plain version (``check_recorded``); under the default planner the
+   routed bands' recall at least the union's less 0.02; every route call
+   makes S packed gathers of B * (3k + 2) * 4 bytes; with
+   ``Telemetry(shadow=0.05)`` the prefilter band's shadow recall is 1.0;
+   slice E's model routes at the per-shard n = 50,000 (route counts
+   printed); ``make_serve_step`` in f32 and int8_reg at query_chunk 128
+   and 64, the two chunkings equal bit for bit, the f32 recall equal to
+   the sharded graph route's.
+8. Slice B, the Boolean call site of the deficit kernel: msturing_bool
    (N = 100,000, 15 variables) through the prefilter scan on the card with
    the kernels, whose ids must equal the same scan's through the plain
    versions.
-8. Slice C, dense-LM serving: qwen3-1.7b at its published width and depth
+9. Slice C, dense-LM serving: qwen3-1.7b at its published width and depth
    (28 layers, d_model 2048, 16 heads, 8 kv heads, head_dim 128, vocab
    151,936), random weights from ``--seed`` on the card, matrices kept in
    bf16 for serving. 4 requests of 4,096 prompt tokens (LM_SHAPES
@@ -173,6 +209,10 @@ MIN_DEGREE_SHARE = 1 / 8       # a built row below R / 8 edges is a fault
 LM_ARCH = "qwen3-1.7b"
 LM_BATCH, LM_PROMPT, LM_STEPS = 4, 4096, 32   # prefill_32k cut to fit
 E_INSERTS, E_INSERT_ROWS = 4, 5000   # slice E's streamed rows, as slice D's
+F_N, F_SIFT_N = 200_000, 120_000     # slice F's msturing_subset, sift_like
+F_QUERIES, F_SHARDS = 1024, 4
+F_BUILD = dict(degree=64, ls_build=96, cand_pool=192, batch_size=8192)
+F_MARGIN = 0.02                # sharded recall per routed band >= union's - it
 LM_F32_TOL = 1e-4              # float32 prefill, of the largest logit
 LM_BF16_NOISE = 2              # bf16 checks: widths of bf16's own error
 
@@ -1134,6 +1174,384 @@ def run_slice_e(torch, np, idx, ds, q_all, gt, f32_qps, K, LS,
     return out
 
 
+def build_slice_f(torch, np, dev, n=F_N, n_sift=F_SIFT_N):
+    """Slice F's data and builds on the card: msturing_subset (N rows, d
+    100, seed 5) under the JAG union index, ``build_unfiltered`` (with
+    RWalks' diffusion over it) and ``ShardedJAGIndex`` over F_SHARDS copies
+    of the card; sift_like (d 128, 12 labels, seed 6) under the stitched
+    index. Returns the phase's context (a namespace)."""
+    from types import SimpleNamespace
+    from repro_torch.core import baselines as BL
+    from repro_torch.core.filters import popcount
+    from repro_torch.core.ground_truth import exact_filtered_knn
+    from repro_torch.core.jag import JAGConfig, JAGIndex
+    from repro_torch.data import synthetic
+    from repro_torch.serve.sharded import ShardedJAGIndex
+
+    t_phase = time.perf_counter()
+    D, nq = 100, F_QUERIES
+    if n != F_N or n_sift != F_SIFT_N:
+        log(f"[slice F] cut: msturing_subset N {F_N} -> {n}, sift_like N "
+            f"{F_SIFT_N} -> {n_sift}")
+    ds = synthetic.msturing_subset(n=n, d=D, b=nq, seed=5, device=dev)
+    sift = synthetic.sift_like(n=n_sift, d=128, b=nq, n_labels=12, seed=6,
+                               device=dev)
+    c = SimpleNamespace(dev=dev, t_phase=t_phase, ds=ds, sift=sift,
+                        mesh=[dev] * F_SHARDS, builds={})
+    c.xb = torch.as_tensor(ds.xb, device=dev)
+    c.q = torch.as_tensor(ds.queries, device=dev)
+    c.req = popcount(ds.filt.data["bits"]).cpu().numpy()
+    c.qs = torch.as_tensor(sift.queries, device=dev)
+    cfg = JAGConfig(**F_BUILD, ov_max=2 * F_BUILD["batch_size"])
+    log(f"[slice F] msturing_subset N={n} d={D} ({nq} queries, required "
+        f"bits {sorted(set(c.req.tolist()))}, seed 5); sift_like "
+        f"N={n_sift} d=128, 12 labels ({nq} queries, seed 6); builds at "
+        f"degree {cfg.degree}, ls_build {cfg.ls_build}, cand_pool "
+        f"{cfg.cand_pool}, batch {cfg.batch_size}")
+
+    def timed_build(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        c.builds[name] = time.perf_counter() - t0
+        log(f"[slice F] build {name}: {c.builds[name]:.1f} s")
+        return r
+
+    c.jag = timed_build("jag", lambda: JAGIndex.build(c.xb, ds.attr, cfg,
+                                                      device=dev))
+    c.unf = timed_build("unfiltered", lambda: BL.build_unfiltered(
+        c.xb, ds.attr, cfg, device=dev))
+    c.sh = timed_build(f"sharded (S={F_SHARDS})",
+                       lambda: ShardedJAGIndex.build(c.xb, ds.attr, cfg,
+                                                     mesh=c.mesh))
+    c.st = timed_build("stitched (12 labels)", lambda: BL.StitchedLabelIndex(
+        sift.xb, sift.attr, cfg, device=dev))
+    c.rw = timed_build("rwalks (m 5, depth 3, over unfiltered)",
+                       lambda: BL.build_rwalks(c.xb, ds.attr, cfg, m=5,
+                                               depth=3, h=0.1, index=c.unf))
+    log(f"[slice F] degree: jag {c.jag.degree_stats()}, unfiltered "
+        f"{c.unf.degree_stats()}")
+    c.gt_ids = exact_filtered_knn(c.xb, c.jag.attr, c.q, ds.filt, k=10,
+                                  use_kernel=True).ids.cpu().numpy()
+    c.gts = exact_filtered_knn(torch.as_tensor(sift.xb, device=dev),
+                               sift.attr, c.qs, sift.filt, k=10,
+                               use_kernel=True).ids.cpu().numpy()
+    return c
+
+
+def _f_recall(res, want):
+    from repro_torch.core.recall import recall_at_k
+    return recall_at_k(res.ids.cpu().numpy(),
+                       res.primary.cpu().numpy() == 0.0, want)
+
+
+def run_slice_f1(torch, np, c, K, LS) -> dict:
+    """F1, the paper's comparison: one batch through each algorithm at
+    k = K, ls = LS; per algorithm and required-bits band, recall@K against
+    the card's exact scan, QPS of a second run (the band alone) and mean
+    n_dist. Every gate raises; returns the report."""
+    from repro_torch.core import baselines as BL
+    from repro_torch.core.filters import matches
+
+    ds, q, dev = c.ds, c.q, c.dev
+    jag, unf, rw, st = c.jag, c.unf, c.rw, c.st
+    algos = {
+        "jag search": (lambda qq, ff: jag.search(qq, ff, k=K, ls=LS), jag),
+        "jag search_auto": (lambda qq, ff: jag.search_auto(
+            qq, ff, k=K, ls=LS), jag),
+        "post_filter": (lambda qq, ff: BL.post_filter_search(
+            unf, qq, ff, k=K, ls=LS), unf),
+        "binary": (lambda qq, ff: BL.binary_search(unf, qq, ff, k=K, ls=LS),
+                   unf),
+        "acorn": (lambda qq, ff: BL.acorn_search(unf, qq, ff, k=K, ls=LS),
+                  unf),
+        "rwalks": (lambda qq, ff: BL.rwalks_search(rw, qq, ff, k=K, ls=LS),
+                   unf),
+        # the same post-filtering over JAG's graph: search_auto's
+        # postfilter route
+        "post_filter@jag": (lambda qq, ff: BL.post_filter_search(
+            jag, qq, ff, k=K, ls=LS), jag),
+    }
+    bands = {int(b): np.flatnonzero(c.req == b) for b in np.unique(c.req)}
+    out = {"algos": {}}
+
+    def serve(name, fn, attr, qq, ff, want, groups):
+        res = fn(qq, ff)
+        torch.cuda.synchronize()
+        hit = (res.primary == 0.0) & (res.ids >= 0)
+        ok = matches(ff, attr.gather(res.ids.clamp_min(0)))
+        if bool((hit & ~ok).any()):
+            raise AssertionError(f"{name} returned {int((hit & ~ok).sum())}"
+                                 f" ids that fail their filter")
+        rec = _f_recall(res, want)
+        row = out["algos"][name] = {"recall": float(rec.mean()),
+                                    "bands": {}}
+        for b, ids in groups.items():
+            idt = torch.as_tensor(ids, device=dev)
+            qb, fb = qq[idt], ff.take(ids)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rb = fn(qb, fb)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            rr = _f_recall(rb, want[ids])
+            nd = float(rb.n_dist.double().mean())
+            row["bands"][b] = dict(queries=int(ids.size), recall=float(
+                rr.mean()), qps=ids.size / secs, n_dist=nd)
+            log(f"[slice F] {name:15s} {b:>11s}: {ids.size:4d} queries, "
+                f"recall@{K} {rr.mean():.4f}, {ids.size / secs:9.1f} QPS, "
+                f"mean n_dist {nd:.1f}")
+        log(f"[slice F] {name:15s} all: recall@{K} {rec.mean():.4f}")
+        return res, rec
+
+    res, rec = {}, {}
+    for name, (fn, idx) in algos.items():
+        res[name], rec[name] = serve(
+            name, fn, idx.attr, q, ds.filt, c.gt_ids,
+            {f"{b} bits": ids for b, ids in bands.items()})
+    _, rec["stitched"] = serve(
+        "stitched", lambda qq, ff: st.search(qq, ff, k=K, ls=LS),
+        c.sift.attr, c.qs, c.sift.filt, c.gts,
+        {"all labels": np.arange(len(c.qs))})
+
+    zero = bands[0]
+    low = np.asarray(ds.selectivity) < 0.02
+    row = out["gates"] = dict(
+        low_queries=int(low.sum()),
+        jag_low=float(rec["jag search"][low].mean()),
+        post_low=float(rec["post_filter"][low].mean()),
+        post_sel1=float(rec["post_filter"][zero].mean()),
+        post_jag_sel1=float(rec["post_filter@jag"][zero].mean()),
+        auto=float(rec["jag search_auto"].mean()),
+        stitched=float(rec["stitched"].mean()))
+    # at selectivity 1 every id passes, so post-filtering returns the
+    # unfiltered traversal's top K on the same graph, id for id
+    sel1 = torch.as_tensor(zero, device=dev)
+    unfilt = unf.search_unfiltered(q[sel1], k=K, ls=LS)
+    same1 = torch.equal(res["post_filter"].ids[sel1], unfilt.ids)
+    log(f"[slice F] gates: {row}; post_filter at selectivity 1 equals the "
+        f"unfiltered traversal's ids: {same1}")
+    if not same1:
+        raise AssertionError("post_filter at selectivity 1 differs from the "
+                             "unfiltered traversal on the same graph")
+    if row["post_jag_sel1"] <= 0.9:
+        raise AssertionError("post-filtering over JAG's graph at selectivity"
+                             f" 1: recall {row['post_jag_sel1']:.4f} <= 0.9")
+    if not row["jag_low"] > row["post_low"] + 0.15:
+        raise AssertionError(f"JAG's low-selectivity recall "
+                             f"{row['jag_low']:.4f} is not above "
+                             f"post_filter's {row['post_low']:.4f} by more "
+                             "than 0.15")
+    if row["auto"] < RECALL_MIN:
+        raise AssertionError(f"search_auto recall {row['auto']:.4f} < "
+                             f"{RECALL_MIN}")
+    # the stitched index routes each query to its label's sub-graph and
+    # maps the local ids through that label's id table
+    qlab = c.sift.filt.data["label"].cpu().numpy()
+    sres = st.search(c.qs, c.sift.filt, k=K, ls=LS)
+    for lab, (idx, gids) in st.sub.items():
+        sel = torch.as_tensor(np.flatnonzero(qlab == lab), device=dev)
+        r = idx.search_unfiltered(c.qs[sel], k=K, ls=LS)
+        mapped = torch.where(r.ids >= 0, gids[r.ids.clamp_min(0).long()], -1)
+        if not torch.equal(sres.ids[sel], mapped):
+            raise AssertionError(f"stitched label {lab}: ids differ from its "
+                                 "sub-index's search mapped to global ids")
+    return out
+
+
+def run_slice_f2(torch, np, c, model, K, LS, MI) -> dict:
+    """F2, sharded serving: S = 1 adopting the union index, S = F_SHARDS on
+    one card (exact routes bit for bit, graph recall per band, packed
+    gathers, the shards' kernel calls replayed, shadow audits, cost
+    routing at the per-shard shape, make_serve_step). Every gate raises;
+    returns the report."""
+    from repro_torch.core.distributed import (ShardedServeConfig,
+                                              make_serve_step)
+    from repro_torch.core.quantized import quantize_int8
+    from repro_torch.core.recall import recall_at_k
+    from repro_torch.kernels import ops, ref
+    from repro_torch.obs import Telemetry
+    from repro_torch.serve import sharded as SH
+    from repro_torch.serve.planner import PlannerConfig
+    from repro_torch.serve.sharded import ShardedJAGIndex
+
+    q, filt, jag, sh, S = c.q, c.ds.filt, c.jag, c.sh, F_SHARDS
+    nq, gt_ids = len(q), c.gt_ids
+    out = {}
+    force_pre = PlannerConfig(prefilter_max_sel=1.1, postfilter_min_sel=1.2)
+    fields = ("ids", "primary", "secondary", "n_expanded", "n_dist")
+
+    def same(a, b, what, with_vlog=False):
+        for f in fields + (("vlog",) if with_vlog else ()):
+            x, y = getattr(a, f), getattr(b, f)
+            if x.shape != y.shape or not torch.equal(x, y):
+                raise AssertionError(f"{what}: {f} differs")
+
+    # S = 1 adopts the union index without a rebuild
+    sh1 = ShardedJAGIndex.from_shards([jag])
+    if sh1.xb[0].data_ptr() != jag.xb.data_ptr():
+        raise AssertionError("from_shards([jag]) copied the rows")
+    for pname, planner in (("default", None), ("force-prefilter",
+                                               force_pre)):
+        a = jag.search_auto(q, filt, k=K, ls=LS, planner=planner)
+        b = sh1.search_auto(q, filt, k=K, ls=LS, planner=planner)
+        same(b, a, f"S=1 {pname}", with_vlog=planner is not None)
+        if planner is None and b.vlog.shape[1] != 0:
+            raise AssertionError("the sharded graph route's vlog has width "
+                                 f"{b.vlog.shape[1]}")
+    log("[slice F] S=1 from_shards([jag]): search_auto equals the index's "
+        "bit for bit under the default and force-prefilter planners (vlog "
+        "width 0 on the graph and postfilter routes)")
+    del sh1
+
+    # S shards, exact routes: every field bit for bit; the shards' kernel
+    # calls kept for their plain versions; the sharded path's launches
+    want = {m: jag.search_auto(q, filt, k=K, ls=LS, planner=force_pre,
+                               mode=m) for m in ("per_query", "batch")}
+    torch.cuda.synchronize()
+    per_call = nq * (3 * K + 2) * 4
+    ops.reset_launches()
+    with KernelCalls(torch, ops, ("gather_dist_tile",
+                                  "bitset_dist")) as calls:
+        for m in ("per_query", "batch"):
+            SH.reset_gathers()
+            got = sh.search_auto(q, filt, k=K, ls=LS, planner=force_pre,
+                                 mode=m)
+            torch.cuda.synchronize()
+            if SH.GATHERS != {"transfers": S, "bytes": S * per_call}:
+                raise AssertionError(f"prefilter ({m}) gathers "
+                                     f"{SH.GATHERS}, not {S} of {per_call}")
+            same(got, want[m], f"S={S} force-prefilter {m}", with_vlog=True)
+    launches = {k: ops.LAUNCHES[k] for k in ("gather_dist_tile",
+                                             "bitset_dist")}
+    out["launches"] = {"sharded": launches}
+    log(f"[slice F] S={S} exact route (force-prefilter, per_query and "
+        f"batch) equals the union index bit for bit; launches (sharded) "
+        f"{launches}; {S} packed gathers of {per_call} bytes a call")
+    for k_, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"the sharded scans launched no {k_}")
+    out["replayed"] = check_recorded(torch, ops, ref, calls.calls)
+    del calls
+    log(f"[slice F] the shards' kernel calls against their plain versions "
+        f"(distinct signatures, max error): {out['replayed']}")
+    for k_ in launches:
+        if not out["replayed"][k_]["signatures"]:
+            raise AssertionError(f"no {k_} call was kept")
+
+    # S shards, the default planner: recall per routed band
+    res_u, p_u = jag.search_auto(q, filt, k=K, ls=LS, return_plan=True)
+    res_s, p_s = sh.search_auto(q, filt, k=K, ls=LS, return_plan=True)
+    if [g.route for g in p_s.groups] != [g.route for g in p_u.groups]:
+        raise AssertionError("the sharded plan differs from the union's")
+    rec_u, rec_s = _f_recall(res_u, gt_ids), _f_recall(res_s, gt_ids)
+    out["routed"] = {}
+    for g in p_s.groups:
+        ru, rs = float(rec_u[g.ids].mean()), float(rec_s[g.ids].mean())
+        out["routed"][g.route] = dict(queries=int(g.ids.size), union=ru,
+                                      sharded=rs)
+        log(f"[slice F] S={S} {g.route}: {g.ids.size} queries, recall@{K} "
+            f"sharded {rs:.4f}, union {ru:.4f}")
+        if rs < ru - F_MARGIN:
+            raise AssertionError(f"S={S} {g.route} recall {rs:.4f} < union "
+                                 f"{ru:.4f} - {F_MARGIN}")
+    for route, call in (
+            ("graph", lambda: sh.executor.graph(q, filt, k=K, ls=LS,
+                                                max_iters=MI)),
+            ("postfilter", lambda: sh.executor.postfilter(
+                q, filt, k=K, ls=LS, max_iters=MI))):
+        SH.reset_gathers()
+        call()
+        if SH.GATHERS != {"transfers": S, "bytes": S * per_call}:
+            raise AssertionError(f"{route} gathers {SH.GATHERS}")
+
+    # telemetry: the shadow oracle over the shards' rows, shard-major
+    tel = sh.attach_telemetry(Telemetry(shadow=0.05))
+    sh.search_auto(q, filt, k=K, ls=LS)
+    table = tel.shadow.recall_table()
+    sh.attach_telemetry(None)
+    pre = [r for r in table if r["route"] == "prefilter"]
+    log(f"[slice F] S={S} shadow audits: {table}")
+    if not pre or any(r["recall"] != 1.0 for r in pre):
+        raise AssertionError(f"sharded prefilter shadow recall not 1.0: "
+                             f"{pre}")
+    out["shadow"] = table
+
+    # cost routing by slice E's model at the per-shard shape
+    sh.attach_cost_model(model)
+    router = sh.executor.cost_router(k=K, ls=LS, filt=filt)
+    if router is None or router.n != sh.n_loc:
+        raise AssertionError(f"the sharded router predicts at n "
+                             f"{getattr(router, 'n', None)}, not {sh.n_loc}")
+    res_m, p_m = sh.search_auto(q, filt, k=K, ls=LS, return_plan=True)
+    sh.attach_cost_model(None)
+    counts = {g.route: int(g.ids.size) for g in p_m.groups}
+    rec_m = _f_recall(res_m, gt_ids)
+    out["cost_routed"] = dict(counts=counts, recall=float(rec_m.mean()))
+    log(f"[slice F] S={S} routed by slice E's model at n = {sh.n_loc}: "
+        f"{counts}, recall@{K} {rec_m.mean():.4f} (static plan "
+        f"{ {g.route: int(g.ids.size) for g in p_s.groups} })")
+
+    # make_serve_step over the shards' arrays, two chunkings
+    n_loc = sh.n_loc
+    codes, scale = quantize_int8(c.xb)
+    codes = [codes[s * n_loc:(s + 1) * n_loc] for s in range(S)]
+    route_g = sh.search(q, filt, k=K, ls=LS, max_iters=MI)
+    rec_g = float(_f_recall(route_g, gt_ids).mean())
+    out["serve_step"] = {}
+    for variant in ("f32", "int8_reg"):
+        runs = {}
+        for chunk in (128, 64):
+            step = make_serve_step(c.mesh, ShardedServeConfig(
+                k=K, ls=LS, max_iters=MI, query_chunk=chunk), "subset",
+                "subset", n_bits=filt.n_bits, variant=variant)
+            args = (sh.graph, sh.xb if variant == "f32" else codes,
+                    sh.xb_norm, sh.attr_data, sh.entry, q, filt.data)
+            args += () if variant == "f32" else (scale,)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[chunk] = step(*args)
+            torch.cuda.synchronize()
+            runs[chunk] += (time.perf_counter() - t0,)
+        (i1, p1, s1, t1), (i2, p2, s2, t2) = runs[128], runs[64]
+        if not (torch.equal(i1, i2) and torch.equal(p1, p2)
+                and torch.equal(s1, s2)):
+            raise AssertionError(f"make_serve_step {variant}: query_chunk "
+                                 "128 and 64 differ")
+        rec_v = float(recall_at_k(i1.cpu().numpy(), p1.cpu().numpy() == 0.0,
+                                  gt_ids).mean())
+        out["serve_step"][variant] = dict(recall=rec_v, s_128=t1, s_64=t2)
+        log(f"[slice F] make_serve_step {variant}: query_chunk 128 and 64 "
+            f"equal bit for bit; recall@{K} {rec_v:.4f}; {t1:.2f} s and "
+            f"{t2:.2f} s")
+        if variant == "f32":
+            agree = float((i1 == route_g.ids).all(dim=1).float().mean())
+            log(f"[slice F] make_serve_step f32 against the sharded graph "
+                f"route (k {K}, ls {LS}, max_iters {MI}): recall {rec_v:.4f}"
+                f" vs {rec_g:.4f}, {agree:.4f} of the queries' ids equal")
+            if rec_v != rec_g:
+                raise AssertionError(f"make_serve_step f32 recall {rec_v} "
+                                     f"differs from the graph route's "
+                                     f"{rec_g}")
+    return out
+
+
+def run_slice_f(torch, np, dev, model, K, LS, MI, n=F_N,
+                n_sift=F_SIFT_N) -> dict:
+    """Slice F: the paper's baselines (F1) and sharded serving (F2) on
+    their own data; ``model`` is slice E's calibrated cost model. Every
+    gate raises; returns the phase's report."""
+    c = build_slice_f(torch, np, dev, n=n, n_sift=n_sift)
+    out = {"n": n, "n_sift": n_sift, "shards": F_SHARDS,
+           "build_s": c.builds}
+    out["baselines"] = run_slice_f1(torch, np, c, K, LS)
+    out.update(run_slice_f2(torch, np, c, model, K, LS, MI))
+    out["phase_s"] = time.perf_counter() - c.t_phase
+    log(f"[slice F] {out['phase_s']:.1f} s (builds "
+        f"{sum(c.builds.values()):.1f} s)")
+    return out
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000,
@@ -1146,6 +1564,11 @@ def main(argv=None) -> int:
                     help="JAGConfig.ls_build of slice A's build")
     ap.add_argument("--cand-pool", type=int, default=192,
                     help="JAGConfig.cand_pool of slice A's build")
+    ap.add_argument("--f-n", type=int, default=F_N,
+                    help="slice F's msturing_subset rows (a multiple of "
+                         f"{F_SHARDS})")
+    ap.add_argument("--f-sift-n", type=int, default=F_SIFT_N,
+                    help="slice F's sift_like rows")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of slice C's random weights and prompts")
     ap.add_argument("--out", default=None,
@@ -1623,7 +2046,14 @@ def main(argv=None) -> int:
     del idx, gt
     torch.cuda.empty_cache()
 
-    # -- 7. slice B: Boolean validity through the deficit kernel -----------
+    # -- 7. slice F: the paper's baselines and sharded serving --------------
+    from repro_torch.cost import from_json
+    report["slice_f"] = run_slice_f(
+        torch, np, dev, from_json(json.dumps(report["slice_e"]["model"])),
+        K, LS, MI, n=args.f_n, n_sift=args.f_sift_n)
+    torch.cuda.empty_cache()
+
+    # -- 8. slice B: Boolean validity through the deficit kernel -----------
     t0 = time.perf_counter()
     dsb = synthetic.msturing_bool(n=100_000, d=D, b=128, n_vars=15,
                                   device=dev)
@@ -1646,7 +2076,7 @@ def main(argv=None) -> int:
         f"{time.perf_counter() - t0:.1f} s")
     report["slice_b"] = {"launches": lb, "hits": n_valid}
 
-    # -- 8. slice C: dense-LM serving ------------------------------------
+    # -- 9. slice C: dense-LM serving ------------------------------------
     del xbb, qb, got, want
     torch.cuda.empty_cache()
     full = LM_SHAPES["prefill_32k"]

@@ -153,6 +153,16 @@ def unfiltered_key_fn() -> KeyFn:
     return key_fn
 
 
+def hard_filter_key_fn(filt, penalty: float = 1.0) -> KeyFn:
+    """Binary match/non-match comparator (the paper's trivial dist_F): a
+    FilteredVamana-style traversal that prefers valid nodes but can still
+    pass through invalid ones."""
+    def key_fn(ids, attrs, d2):
+        del ids
+        return (dist_f(filt, attrs) > 0).to(torch.float32) * penalty, d2
+    return key_fn
+
+
 def build_threshold_key_fn(kind: str, a_p: Dict[str, torch.Tensor],
                            t) -> KeyFn:
     """D_A^t(p, u) = (max(dist_A(a_p,a_u)-t, 0), dist(x_p,x_u)), §3.2.

@@ -344,6 +344,21 @@ class JAGIndex:
     def _q(self, queries) -> torch.Tensor:
         return to_tensor(queries, torch.float32, self.device)
 
+    # -- multi-device serving (serve/sharded.py) ----------------------------
+    def shard(self, n_shards: int, mesh=None):
+        """Re-shard this index row-wise across ``n_shards`` devices, or
+        the device list ``mesh`` (which may repeat a device).
+
+        Returns a ``serve.ShardedJAGIndex`` serving the same rows behind
+        the same ``search_auto`` surface; per-shard sub-graphs are rebuilt
+        from this index's rows and config (a built graph's edges cross any
+        row split, so an honest reshard is a rebuild). Requires N divisible
+        by the shard count and, without ``mesh``, that many visible CUDA
+        devices.
+        """
+        from ..serve.sharded import shard_index
+        return shard_index(self, n_shards, mesh=mesh)
+
     # -- persistence ---------------------------------------------------------
     def _save_arrays(self, cost_model=..., cost_metric: str = "us") -> dict:
         """The index as a flat npz-ready dict in the reference's format

@@ -7,10 +7,15 @@ seed; the tables and filters are then placed on ``device`` (default
 "cuda").
 
   sift_like       - label filter: uniform label in {0..11}; query = a label.
+  msturing_range  - integer attribute in [0, 1e6]; query ranges of length
+                    1e6/k, k in {1,10,1e2,1e3,1e4,1e5} (mixed selectivity).
   msturing_subset - 30 Bernoulli(1/2) attributes; a query requires k of them
                     (k from ``req_ks``: selectivity 1 .. 2^-12 by default).
   msturing_bool   - random boolean predicates over 15 variables with pass
                     rates in (2^-4,1), (2^-8,2^-4), (2^-12,2^-8), (0,2^-12).
+  laion_like      - 30 keyword clusters; each point tagged with its 3
+                    nearest keyword centres (subset filter; the query's
+                    keyword is positive, random or negative to its vector).
 """
 from __future__ import annotations
 
@@ -64,6 +69,24 @@ def sift_like(n=20000, d=64, b=256, n_labels=12, seed=0,
                            F.label_filters(qlab, device), sel)
 
 
+def msturing_range(n=20000, d=64, b=256, seed=0,
+                   sel_ks=(1, 10, 100, 1000, 10_000, 100_000),
+                   device=None) -> FilteredDataset:
+    rng = np.random.default_rng(seed)
+    xb, centers, _ = _clustered(rng, n, d)
+    q, _ = _queries(rng, centers, b, d)
+    vals = rng.integers(0, 1_000_000, n).astype(np.float32)
+    k = rng.choice(sel_ks, b)
+    width = 1_000_000 / k
+    lo = rng.uniform(0, np.maximum(1_000_000 - width, 1))
+    hi = lo + width
+    sel = np.array([((vals >= l) & (vals <= h)).mean()
+                    for l, h in zip(lo, hi)])
+    return FilteredDataset("msturing_range", xb,
+                           F.range_table(vals, device), q,
+                           F.range_filters(lo, hi, device), sel)
+
+
 def msturing_subset(n=20000, d=64, b=256, n_attrs=30, seed=0,
                     req_ks=(0, 2, 4, 6, 8, 10, 12),
                     device=None) -> FilteredDataset:
@@ -106,3 +129,47 @@ def msturing_bool(n=20000, d=64, b=128, n_vars=15, seed=0,
                            F.boolean_table(assign, n_vars, device=device), q,
                            F.boolean_filters(sat, n_vars, device=device), sel)
 
+
+def laion_like(n=20000, d=64, b=256, n_keywords=30, tags_per_point=3,
+               correlation="random", seed=0, device=None) -> FilteredDataset:
+    """Keyword clusters; subset filter with controllable query correlation.
+    Builds an [n, n_keywords, d] temporary on the host: test sizes only."""
+    rng = np.random.default_rng(seed)
+    keywords = rng.normal(size=(n_keywords, d)) * 4.0
+    xb = (keywords[rng.integers(0, n_keywords, n)]
+          + rng.normal(size=(n, d))).astype(np.float32)
+    # each point tagged with its `tags_per_point` nearest keyword centres
+    d2 = ((xb[:, None, :] - keywords[None]) ** 2).sum(-1)
+    tags = np.argsort(d2, axis=1)[:, :tags_per_point]
+    bits = np.zeros((n, n_keywords), bool)
+    np.put_along_axis(bits, tags, True, axis=1)
+
+    q = (keywords[rng.integers(0, n_keywords, b)]
+         + rng.normal(size=(b, d))).astype(np.float32)
+    qd2 = ((q[:, None, :] - keywords[None]) ** 2).sum(-1)
+    if correlation == "positive":
+        kw = np.argmin(qd2, axis=1)
+    elif correlation == "negative":
+        kw = np.argmax(qd2, axis=1)
+    else:
+        kw = rng.integers(0, n_keywords, b)
+    fbits = np.zeros((b, n_keywords), bool)
+    fbits[np.arange(b), kw] = True
+    sel = bits[:, kw].mean(axis=0)
+    return FilteredDataset(f"laion_like_{correlation}", xb,
+                           F.subset_table(bits, n_keywords, device=device), q,
+                           F.subset_filters(fbits, n_keywords, device=device),
+                           sel)
+
+
+REGISTRY = {
+    "sift_like": sift_like,
+    "msturing_range": msturing_range,
+    "msturing_subset": msturing_subset,
+    "msturing_bool": msturing_bool,
+    "laion_like": laion_like,
+}
+
+
+def make(name: str, **kw) -> FilteredDataset:
+    return REGISTRY[name](**kw)

@@ -135,10 +135,13 @@ class RecallCell:
 
 def _live_parts(index):
     """(vector segments, attr table) of every live row the index serves:
-    the base vectors, then a streaming index's delta vectors. Each segment
-    stays fixed once captured (a delta append makes a new device copy), so
-    the references are a snapshot without copying the database."""
-    parts = (index.xb,)
+    the base vectors, then a streaming index's delta vectors; a sharded
+    index's shards in shard order (shard-major, as its globalized ids
+    ``local + shard * n_loc`` count them). Each segment stays fixed once
+    captured (a delta append makes a new device copy), so the references
+    are a snapshot without copying the database."""
+    parts = (tuple(index.xb) if getattr(index, "n_loc", None) is not None
+             else (index.xb,))
     if hasattr(index, "delta_arrays") and getattr(index.delta, "n", 0) > 0:
         xv, _, _ = index.delta_arrays()
         parts = parts + (xv,)
@@ -151,10 +154,19 @@ def oracle_arrays(index):
     Frozen ``JAGIndex``: the base arrays.  ``StreamingJAGIndex``: base
     vectors + delta vectors (``index.attr`` is already the merged live
     table, and delta ids are offset past the base — matching the oracle's
-    row order exactly).
+    row order exactly). ``ShardedJAGIndex``: the replicated union attr
+    table with the shards' rows concatenated shard-major on the lead
+    device, matching the globalized ids the sharded routes return.
     """
     parts, attr = _live_parts(index)
-    return (parts[0] if len(parts) == 1 else torch.cat(parts)), attr
+    return _concat(parts), attr
+
+
+def _concat(parts) -> torch.Tensor:
+    """The segments as one table on the first one's device."""
+    if len(parts) == 1:
+        return parts[0]
+    return torch.cat([p.to(parts[0].device) for p in parts])
 
 
 @dataclass(frozen=True)
@@ -269,8 +281,9 @@ class ShadowAuditor:
         n = 0
         for e in pending:
             f = e.filt.take(e.padded)
-            # one concatenated copy of a streaming database at a time
-            xb = e.parts[0] if len(e.parts) == 1 else torch.cat(e.parts)
+            # one concatenated copy of a streaming or sharded database at a
+            # time
+            xb = _concat(e.parts)
             gt = exact_filtered_knn(xb, e.attr, e.queries, f, k=e.k,
                                     use_kernel=xb.is_cuda)
             if xb.is_cuda:

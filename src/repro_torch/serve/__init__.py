@@ -8,7 +8,8 @@ and routes whole batches or single queries; dispatch.py gathers per-query
 route groups into sub-batches and scatters the results back; executor.py
 owns the epoch-keyed route cache behind every ``JAGIndex.search*`` entry
 point (prefilter | graph | postfilter, and delta | merge for a streaming
-index).
+index); sharded.py serves an index split row-wise over a list of devices
+behind the same surface (``ShardedJAGIndex``, ``shard_index``).
 """
 from .dispatch import (dispatch_per_query, fold_topk, merge_topk, regroup,
                        run_route)
@@ -28,4 +29,16 @@ __all__ = ["Executor", "FusedEngine", "FusedLayout", "GroupPlan", "Plan",
            "leaf_selectivities", "leaf_validity", "load_layout",
            "make_fetch_fn", "merge_topk", "plan", "plan_per_query",
            "regroup", "reorder_clauses", "run_route", "sample_ids",
-           "save_layout"]
+           "save_layout", "ShardedExecutor", "ShardedJAGIndex",
+           "shard_index"]
+
+_SHARDED = ("ShardedExecutor", "ShardedJAGIndex", "shard_index")
+
+
+def __getattr__(name):
+    # sharded.py imports core.jag, which imports this package (core.build
+    # -> serve.engine) while it is still being defined: load it on first use
+    if name in _SHARDED:
+        from . import sharded
+        return getattr(sharded, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -86,7 +86,7 @@ class Executor:
 
     @property
     def use_kernel(self) -> bool:
-        return self.index.xb.is_cuda
+        return self.index.device.type == "cuda"
 
     # -- cache plumbing ----------------------------------------------------
     @property
@@ -114,7 +114,7 @@ class Executor:
         if ids is None:
             from .planner import sample_ids
             ids = self._samples[key] = sample_ids(n, n_samples, seed,
-                                                  self.index.xb.device)
+                                                  self.index.device)
         return ids
 
     def run(self, key: Tuple, make: Callable[[], Callable], *args):
@@ -242,9 +242,11 @@ class Executor:
         """Masked exact scan adapted to the SearchResult contract, behind
         both scan routes: primary is 0 where a valid neighbour was found,
         INF on -1 padding; ids are offset by ``offset``; n_dist counts
-        valid points scanned; vlog is ``[B, 0]`` (no traversal)."""
+        valid points scanned; vlog is ``[B, 0]`` (no traversal). The offset
+        is a call argument, so one cached closure serves every shard of a
+        sharded index."""
         def make():
-            def run(xb, attr, q, filt):
+            def run(xb, attr, q, filt, offset):
                 gt = exact_filtered_knn(xb, attr, q, filt, k=k, block=block,
                                         use_kernel=use_kernel)
                 B = q.shape[0]
@@ -257,7 +259,7 @@ class Executor:
                                     torch.zeros((B,), dtype=torch.int32,
                                                 device=q.device), gt.n_dist)
             return run
-        return self.run(key, make, xb, attr, queries, filt)
+        return self.run(key, make, xb, attr, queries, filt, offset)
 
     def _reorder_compound(self, filt):
         """Short-circuit-optimal clause order for a compound expression,

@@ -190,6 +190,49 @@ def test_cuda_delta_route_kernels_match_plain(sm90, n_delta):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["subset", "boolean"])
+def test_cuda_sharded_prefilter_equals_union(sm90, kind):
+    """Four shards of one index on the one card: the sharded exact route
+    (each shard's scan through gather_dist_tile and bitset_dist, merged in
+    shard order) equals the union index's scan on every field, bit for
+    bit, in both dispatch modes."""
+    from repro_torch.core.filters import (boolean_filters, boolean_table)
+    from repro_torch.core.jag import JAGConfig, JAGIndex
+    from repro_torch.serve import ShardedJAGIndex
+    from repro_torch.serve import sharded as SH
+    from repro_torch.serve.planner import PlannerConfig
+    rng = np.random.default_rng(7)
+    N, d, B, S = 2000, 24, 48, 4
+    x = rng.normal(size=(N, d)).astype(np.float32)
+    if kind == "subset":
+        tab = subset_table(rng.random((N, 30)) < 0.5, 30, device=sm90)
+        fb = np.zeros((B, 30), bool)
+        fb[:, :3] = True
+        filt = subset_filters(fb, 30, device=sm90)
+    else:
+        tab = boolean_table(rng.integers(0, 1 << 8, N).astype(np.uint32), 8,
+                            device=sm90)
+        filt = boolean_filters(rng.random((B, 1 << 8)) < 0.2, 8,
+                               device=sm90)
+    cfg = JAGConfig(degree=8, ls_build=16, batch_size=256, cand_pool=32)
+    union = JAGIndex.build(x, tab, cfg, device=sm90)
+    sh = ShardedJAGIndex.build(x, tab, cfg, mesh=[sm90] * S)
+    q = _t(rng.normal(size=(B, d)).astype(np.float32)).to(sm90)
+    force = PlannerConfig(prefilter_max_sel=1.1, postfilter_min_sel=1.2)
+    for mode in ("per_query", "batch"):
+        want = union.search_auto(q, filt, k=10, planner=force, mode=mode)
+        ops.reset_launches()
+        SH.reset_gathers()
+        got = sh.search_auto(q, filt, k=10, planner=force, mode=mode)
+        assert ops.LAUNCHES["gather_dist_tile"] >= S
+        assert ops.LAUNCHES["bitset_dist"] >= S
+        assert SH.GATHERS["transfers"] == S
+        for f in got._fields:
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert int((want.ids >= 0).sum()) > 0
+
+
+@pytest.mark.gpu
 def test_cuda_time_route_waits_for_the_card(sm90):
     """``cost.time_route`` times a call to the end of its work on the card:
     a kernel that spins for about 1e8 clocks reads tens of milliseconds,
