@@ -175,7 +175,29 @@ result line:
    each bf16 prefill lies about e from the float32 one, so two of them lie
    up to 2e apart. The kernel's bf16 prefill must stay within 2e of the
    plain bf16 prefill, and the first decode step's logits within 2e of a
-   prefill over T + 1 tokens.
+   prefill over T + 1 tokens. Printed: the prefill's and a decode step's
+   flops and bytes against the card's roofline (``launch.roofline``) and
+   the measured time's share of that bound.
+10. Slice G, static analysis and launch tooling (budget 60 s):
+   ``repro_torch.analysis``'s lint over ``src/repro_torch`` (zero
+   unjustified findings, counts per rule printed); its route audit on the
+   card at the audit size (256 rows, d 8, 13 single-device routes and the
+   4 sharded ones over ``[cuda:0] * 8``), zero violations; and slice A's
+   index at full width (no rebuild), each route on slice A's batch group
+   (prefilter 568 queries, the graph route's 315 in the fused and the
+   default layout, postfilter 141) through ``launch.trace_stats``'s op
+   recorder and profiler. The index leaves the card after slice E as it
+   did before slice G, kept on the host as its ``_save_arrays()``, and
+   comes back for this part with ``JAGIndex.from_arrays``, so slices F,
+   B and C run as they did without slice G. Gates: the fused route
+   launches ``fused_expand`` once per expansion plus once for the seeds
+   and makes no aten N-row data gather, the default layout and
+   postfilter 3 N-row gathers per expansion, the prefilter's
+   ``gather_dist_tile`` and ``bitset_dist`` launches equal its 245
+   blocks, every route's host syncs within the audit's budget, no f64
+   op. Printed per route: host syncs a call, launches and device kernels
+   per expansion (or block), device busy share, longest idle gaps; then
+   each kernel record's share of its bound.
 
 The last lines are nvidia-smi's card line, one JSON object with a record
 per kernel, and ``{"ok": true, "device": {...}}``.
@@ -193,15 +215,6 @@ import sys
 import time
 from pathlib import Path
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
-FP32_OPS_PER_S = 67e12         # H100 SXM FP32 outside the tensor cores
-BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
-TF32_OPS_PER_S = 495e12        # H100 SXM TF32 tensor cores, dense
-TF32_PASSES = 3                # split-TF32 products of float32 operands
-POPC_PER_CLOCK = 16            # popcounts a clock an SM, compute capability
-                               # 9.0 (CUDA C++ Programming Guide, throughput
-                               # of native arithmetic instructions)
-L2_BYTES = 50e6                # H100 L2 cache
 COLD_SETS = 8                  # id batches a cold fused_expand timing cycles
 DTOL = 1e-5                    # d2 tolerance, relative to |x|^2 + |q|^2
 RECALL_MIN = 0.80
@@ -285,30 +298,17 @@ def cold_ms(torch, fns, iters: int) -> float:
 
 
 def popc_ops_per_s(torch) -> tuple:
-    """The card's popcount rate: SMs x POPC_PER_CLOCK x the SM's maximum
-    clock as nvidia-smi prints it (``clocks.max.sm``); also that line."""
+    """The card's popcount rate (``launch.roofline.popc_ops_per_s`` at its
+    SM count and the SM's maximum clock as nvidia-smi prints it,
+    ``clocks.max.sm``); also that line."""
+    from repro_torch.launch.roofline import HW, popc_ops_per_s as rate
     clock = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
         capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return sms * POPC_PER_CLOCK * float(clock.split()[0]) * 1e6, \
-        f"{sms} SMs x {POPC_PER_CLOCK} a clock x clocks.max.sm {clock}"
-
-
-def bound_ms(n_bytes: float, n_ops: float,
-             ops_per_s: float = FP32_OPS_PER_S) -> tuple:
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / ops_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def split_bound_ms(n_bytes: float, n_ops: float) -> tuple:
-    """(bound ms, by, FP32-rate ms) of a kernel whose float32 products run
-    as TF32_PASSES passes on the TF32 tensor cores; the third figure is the
-    same work at the FP32 rate of the CUDA cores."""
-    b, o = bound_ms(n_bytes, TF32_PASSES * n_ops, TF32_OPS_PER_S)
-    return b, o, bound_ms(n_bytes, n_ops)[0]
+    return rate(sms, float(clock.split()[0])), \
+        f"{sms} SMs x {HW['popc_per_clock']} a clock x clocks.max.sm {clock}"
 
 
 def check_d2(torch, name, got, want, scale):
@@ -496,36 +496,19 @@ def check_recorded(torch, ops, ref, calls) -> dict:
     return out
 
 
-def profile_main_path(torch, run, trace_path: str) -> dict:
-    """Device busy share and the top kernels of one traced run."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    Path(trace_path).parent.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(trace_path)
-    rows = []
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = e.self_cuda_time_total
-        if dev_us > 0:
-            rows.append((dev_us, e.key, e.count))
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows) / 1e6
-    out = {"wall_s": wall, "device_busy_s": busy,
-           "device_busy_share": busy / wall,
-           "top": [{"name": k[:90], "device_ms": us / 1e3, "calls": c}
-                   for us, k, c in rows[:12]]}
-    log(f"[profile] wall {wall * 1e3:.1f} ms, device busy "
-        f"{busy * 1e3:.1f} ms ({100 * busy / wall:.1f}%)")
-    for r in out["top"]:
-        log(f"[profile]   {r['device_ms']:9.3f} ms {r['calls']:6d}x "
-            f"{r['name']}")
+def profile_main_path(run, trace_path: str) -> dict:
+    """Device busy share, idle gaps and the top kernels of one traced run
+    (``launch.trace_stats.profile``; the Chrome trace goes to
+    ``trace_path``)."""
+    from repro_torch.launch.trace_stats import profile
+    out = profile(run, trace_path)
+    log(f"[profile] wall {out['wall_us'] / 1e3:.1f} ms, device busy "
+        f"{out['device_busy_us'] / 1e3:.1f} ms "
+        f"({100 * out['device_busy_share']:.1f}%), longest idle gaps us "
+        f"{[round(g, 1) for g in out['idle_gaps_us']]}")
+    for name, k in list(out["kernels"].items())[:12]:
+        log(f"[profile]   {k['device_ms']:9.3f} ms {k['calls']:6d}x "
+            f"{name[:90]}")
     return out
 
 
@@ -539,6 +522,7 @@ def run_slice_d(torch, np, idx, ds, q_all, gt, f32_recall, f32_qps, kernels,
     from repro_torch.core.quantized import quantize_int8
     from repro_torch.core.recall import recall_at_k
     from repro_torch.kernels import ops, ref
+    from repro_torch.launch.roofline import kernel_bound_ms
     from repro_torch.serve.layout import build_layout
     from repro_torch.stream import StreamingJAGIndex
 
@@ -622,8 +606,7 @@ def run_slice_d(torch, np, idx, ds, q_all, gt, f32_recall, f32_qps, kernels,
     err = check_fused_expand(torch, ops, ref, lay8.packed, id_sets[0], q_eff,
                              qgn, D)
     A = lay8.n_attr_words
-    b, o = bound_ms(Bg * C * ((D + 1 + A) * 4 + 4 + 4 + A * 4)
-                    + Bg * (D + 1) * 4, 2 * Bg * C * D)
+    b, o = kernel_bound_ms("fused_expand", B=Bg, C=C, d=D, A=A)
     rec8 = dict(
         shape=f"packed[{N},{D + 1 + A}] int8 lanes ids[{Bg},{C}]",
         max_abs_err=err,
@@ -1552,6 +1535,174 @@ def run_slice_f(torch, np, dev, model, K, LS, MI, n=F_N,
         f"{sum(c.builds.values()):.1f} s)")
     return out
 
+def run_slice_g_routes(torch, arrays, dev, ds, q_all, groups, K, LS,
+                       MI) -> dict:
+    """Slice G, part (c): slice A's index at full width, back on the card
+    from ``arrays`` (its ``_save_arrays()``, kept on the host since slice
+    E: no rebuild), each route at slice A's batch group through the op
+    recorder (launches, gathers and host syncs per call) and the profiler
+    (device busy share, idle gaps, device kernels per iteration). Every
+    gate raises; returns this part's report."""
+    from repro_torch.analysis import audit as AU
+    from repro_torch.core.jag import JAGIndex
+    from repro_torch.kernels import ops
+    from repro_torch.launch.trace_stats import (GATHER_OPS, profile, record,
+                                                spec)
+
+    t_phase = time.perf_counter()
+    idx = JAGIndex.from_arrays(arrays, device=dev)
+    torch.cuda.synchronize()
+    out = {"restore_s": time.perf_counter() - t_phase}
+    ex = idx.executor
+    N = int(idx.xb.shape[0])
+    adj = spec(idx.graph).key
+    blocks = -(-N // 4096)
+
+    def group(route):
+        ids = torch.as_tensor(groups[route], device=q_all.device)
+        return q_all[ids].contiguous(), ds.filt.take(groups[route])
+
+    qp, fp = group("prefilter")
+    qg, fg = group("graph")
+    qo, fo = group("postfilter")
+    routes = {
+        "prefilter": (qp, lambda: ex.prefilter(qp, fp, k=K)),
+        "graph:fused:f32": (qg, lambda: ex.graph(qg, fg, k=K, ls=LS,
+                                                 max_iters=MI,
+                                                 layout="fused")),
+        "graph:default:f32": (qg, lambda: ex.graph(qg, fg, k=K, ls=LS,
+                                                   max_iters=MI)),
+        "postfilter": (qo, lambda: ex.postfilter(qo, fo, k=K, ls=LS,
+                                                 max_iters=MI)),
+    }
+    out["routes"] = {}
+    for name, (q, call) in routes.items():
+        call()                               # its closure built, warm
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        _, recs = record(call)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        st = AU.analyze_record(recs, n_rows=N, adj=adj)
+        iters = st["adjacency_gathers"]
+        budget = AU.host_sync_budget(name, [iters], MI)
+        aten_rows = sum(1 for r in recs if r.name in GATHER_OPS
+                        and r.inputs[0].shape[:1] == (N,)
+                        and r.inputs[0].key != adj)
+        prof = profile(call)
+        steps = iters if iters else blocks
+        row = dict(
+            queries=int(q.shape[0]), iterations=iters, host_syncs=st["host_syncs"],
+            host_sync_budget=budget,
+            gathers_per_expansion=st["gathers_per_expansion"],
+            aten_row_gathers=aten_rows, f64_ops=st["f64_ops"],
+            launches=launches, launches_per_step={
+                k: v / steps for k, v in launches.items()},
+            device_kernels=prof["kernel_launches"],
+            device_kernels_per_step=prof["kernel_launches"] / steps,
+            device_busy_share=prof["device_busy_share"],
+            idle_gaps_us=prof["idle_gaps_us"], wall_ms=prof["wall_us"] / 1e3,
+            idle_ms=prof["idle_us"] / 1e3,
+            idle_at_syncs_ms=prof["idle_at_syncs_us"] / 1e3,
+            runtime_syncs=prof["runtime_syncs"],
+            dtoh_copies=prof["dtoh_copies"], n_ops=st["n_ops"])
+        out["routes"][name] = row
+        step = "expansion" if iters else "block"
+        log(f"[slice G] {name} ({row['queries']} queries, "
+            f"{iters or blocks} {step}s): host syncs {st['host_syncs']} a "
+            f"call (budget {budget}; profiler: {prof['runtime_syncs']} "
+            f"runtime syncs, {prof['dtoh_copies']} DtoH copies); "
+            f"launches per {step} {row['launches_per_step']}; device kernels "
+            f"{prof['kernel_launches']} ({row['device_kernels_per_step']:.1f}"
+            f" per {step}); gathers per expansion "
+            f"{st['gathers_per_expansion']}, aten N-row gathers {aten_rows}; "
+            f"device busy {100 * prof['device_busy_share']:.1f}% of "
+            f"{row['wall_ms']:.1f} ms, idle {row['idle_ms']:.1f} ms of the "
+            f"trace ({row['idle_at_syncs_ms']:.1f} ms in stretches where a "
+            f"sync returned), longest idle gaps us "
+            f"{[round(g, 1) for g in prof['idle_gaps_us'][:3]]}")
+        if st["f64_ops"]:
+            raise AssertionError(f"{name}: {st['f64_ops']} f64 op(s)")
+        if st["host_syncs"] > budget:
+            raise AssertionError(f"{name}: {st['host_syncs']} host syncs, "
+                                 f"budget {budget}")
+        if prof["kernel_launches"] <= 0:
+            raise AssertionError(f"{name}: the profiler saw no kernel")
+        if name == "prefilter" and (
+                launches.get("gather_dist_tile") != blocks
+                or launches.get("bitset_dist") != blocks):
+            raise AssertionError(f"prefilter launched {launches}, not "
+                                 f"{blocks} of each scan kernel")
+        if name == "graph:fused:f32" and (
+                launches.get("fused_expand") != iters + 1
+                or st["gathers_per_expansion"] != 1 or aten_rows):
+            raise AssertionError(
+                f"fused graph route: {launches} launches over {iters} "
+                f"expansions (+1 seed fetch), {st['gathers_per_expansion']} "
+                f"gathers per expansion, {aten_rows} aten N-row gathers")
+        if name in ("graph:default:f32", "postfilter") and \
+                st["gathers_per_expansion"] != 3:
+            raise AssertionError(f"{name}: {st['gathers_per_expansion']} "
+                                 "N-row gathers per expansion, not 3")
+
+    del ex, idx
+    torch.cuda.empty_cache()
+    out["routes_s"] = time.perf_counter() - t_phase
+    log(f"[slice G] slice A's routes {out['routes_s']:.1f} s (the index "
+        f"back on the card in {out['restore_s']:.1f} s)")
+    return out
+
+
+def run_slice_g(kernels, routes: dict) -> dict:
+    """Slice G: the port's static analysis and launch tooling on the card.
+    (a) the lint over ``src/repro_torch``; (b) the route audit on the card
+    at the audit size, the sharded routes over ``[cuda:0] * 8``; (c)
+    ``routes``, the report of ``run_slice_g_routes``; (d) each kernel
+    record's share of its bound. Every gate raises; returns the phase's
+    report."""
+    from repro_torch.analysis import audit as AU
+    from repro_torch.analysis.lint import format_report, run_lint
+
+    t_phase = time.perf_counter()
+    out = {}
+    # (a) the lint: zero unjustified findings, counts per rule
+    lint = run_lint()
+    for line in format_report(lint):
+        log(f"[slice G] lint {line}")
+    if not lint.ok:
+        raise AssertionError(f"lint: {len(lint.findings)} finding(s), "
+                             f"{len(lint.config_errors)} config error(s)")
+    out["lint"] = lint.counts()
+    # (b) the route audit on the card
+    t0 = time.perf_counter()
+    audit = AU.run_audit("cuda")
+    for line in AU.format_report(audit):
+        log(f"[slice G] {line}")
+    if audit["violations"]:
+        raise AssertionError(f"audit: {audit['violations']}")
+    keep = ("gathers_total", "gathers_per_expansion", "host_syncs",
+            "host_sync_budget", "iterations", "collectives")
+    out["audit"] = {
+        "s": time.perf_counter() - t0, "meta": audit["meta"],
+        "routes": {n: {k: r[k] for k in keep}
+                   for n, r in audit["routes"].items()},
+        "sharded": {n: {k: r[k] for k in keep}
+                    for n, r in audit["sharded"]["routes"].items()}}
+    out.update(routes)
+    # (d) each kernel record's share of its bound
+    out["bound_share"] = {}
+    for name, kr in kernels.items():
+        kr["bound_share"] = out["bound_share"][name] = \
+            kr["bound_ms"] / kr["ms"]
+        log(f"[slice G] {name}: {kr['ms']:.6f} ms, bound "
+            f"{kr['bound_ms']:.7f} ms ({kr['bound_by']}), "
+            f"{100 * kr['bound_share']:.1f}% of its bound")
+    out["phase_s"] = time.perf_counter() - t_phase + routes["routes_s"]
+    log(f"[slice G] {out['phase_s']:.1f} s (audit {out['audit']['s']:.1f} "
+        f"s, slice A's routes {routes['routes_s']:.1f} s)")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000,
@@ -1595,6 +1746,7 @@ def main(argv=None) -> int:
     from repro_torch.data import synthetic
     from repro_torch.device import resolve_device
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.launch import roofline as RL
     from repro_torch.models import transformer as TT
     from repro_torch.serve.layout import build_layout
     from repro_torch.serve.planner import PlannerConfig, plan_per_query
@@ -1703,10 +1855,9 @@ def main(argv=None) -> int:
                                                       d=D), 50)
     log(f"[kernels] fused_expand: {fe_cold:.6f} ms with cold rows "
         f"({COLD_SETS} id batches in turn, {COLD_SETS * row_bytes / 1e6:.1f} "
-        f"MB of rows against the {L2_BYTES / 1e6:.0f} MB L2), {fe_warm:.6f} "
-        f"ms warm (one batch)")
-    b, o = bound_ms(Bg * C * ((D + 1 + A) * 4 + 4 + 4 + A * 4)
-                    + Bg * (D + 1) * 4, 2 * Bg * C * D)
+        f"MB of rows against the {RL.HW['l2_bytes'] / 1e6:.0f} MB L2), "
+        f"{fe_warm:.6f} ms warm (one batch)")
+    b, o = RL.kernel_bound_ms("fused_expand", B=Bg, C=C, d=D, A=A)
     kernels["fused_expand"] = dict(
         name="fused_expand", route="cuda",
         source="src/repro_torch/csrc/fused_expand.cu",
@@ -1752,7 +1903,7 @@ def main(argv=None) -> int:
         f"{COLD_SETS} id batches; fused_expand {fe_cold:.6f}), {gd_warm:.6f} "
         f"ms warm (one batch)")
     del id_sets
-    b, o = bound_ms(Bg * C * (D * 4 + 4 + 4) + Bg * D * 4, 3 * Bg * C * D)
+    b, o = RL.kernel_bound_ms("gather_dist", B=Bg, C=C, d=D)
     kernels["gather_dist"] = dict(
         name="gather_dist", route="cuda",
         source="src/repro_torch/csrc/gather_dist.cu",
@@ -1767,8 +1918,7 @@ def main(argv=None) -> int:
     xl = xb[:min(N, 262_144)]
 
     err, share, f64 = check_l2dist(torch, ops, ref, q_all, xl)
-    b, o, b32 = split_bound_ms((NQ * D + len(xl) * D + NQ * len(xl)) * 4,
-                               2 * NQ * len(xl) * D)
+    b, o, b32 = RL.kernel_split_bound_ms("l2dist", B=NQ, N=len(xl), d=D)
     kernels["l2dist"] = dict(
         name="l2dist", route="cuda", source="src/repro_torch/csrc/l2dist.cu",
         replaces="src/repro/kernels/l2dist.py:44",
@@ -1785,8 +1935,7 @@ def main(argv=None) -> int:
                  ms=cuda_ms(torch, lambda: ops.l2dist(qb8, xb8), 50),
                  library_ms=cuda_ms(torch, lambda: torch.mm(qb8, xb8.T), 50))
     bench["bound_ms"], bench["bound_by"], bench["fp32_bound_ms"] = \
-        split_bound_ms((256 * 128 + 8192 * 128 + 256 * 8192) * 4,
-                       2 * 256 * 8192 * 128)
+        RL.kernel_split_bound_ms("l2dist", B=256, N=8192, d=128)
     log(f"[kernels] l2dist q[256,128] xb[8192,128] (kernels_bench): "
         f"{bench['ms']:.4f} ms (bound {bench['bound_ms']:.4f} ms by "
         f"{bench['bound_by']}, FP32 rate {bench['fp32_bound_ms']:.4f} ms, "
@@ -1802,10 +1951,9 @@ def main(argv=None) -> int:
     fq, fk, fv = (torch.randn(sh, generator=gen, device=dev).to(lm.dtype)
                   for sh in (fshape, kshape, kshape))
     ferr = check_flash(torch, ops, ref, fq, fk, fv)
-    n_el = 2 * fq.numel() + 2 * fk.numel()         # q, k, v and out
-    b, o = bound_ms(n_el * fq.element_size(),
-                    2 * LM_BATCH * lm.n_heads * LM_PROMPT ** 2 * lm.hd,
-                    BF16_OPS_PER_S)
+    attn = dict(B=LM_BATCH, H=lm.n_heads, Hkv=lm.n_kv_heads, T=LM_PROMPT,
+                D=lm.hd)
+    b, o = RL.kernel_bound_ms("flash_attention", **attn)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     kernels["flash_attention"] = dict(
         name="flash_attention", route="cuda",
@@ -1823,9 +1971,7 @@ def main(argv=None) -> int:
     # flash_attention_f32: the float32 check prefill's attention, same shape
     fq, fk, fv = (t.float() for t in (fq, fk, fv))
     ferr = check_flash(torch, ops, ref, fq, fk, fv)
-    b, o, b32 = split_bound_ms(
-        n_el * fq.element_size(),
-        2 * LM_BATCH * lm.n_heads * LM_PROMPT ** 2 * lm.hd)
+    b, o, b32 = RL.kernel_split_bound_ms("flash_attention_f32", **attn)
     kernels["flash_attention_f32"] = dict(
         name="flash_attention_f32", route="cuda",
         source="src/repro_torch/csrc/flash_attention_f32.cu",
@@ -1862,8 +2008,7 @@ def main(argv=None) -> int:
         f"{bit_exact}")
     if not bit_exact:
         raise AssertionError("gather_dist_tile is not bit-exact")
-    b, o = bound_ms((block * dp + Bp * dp + Bp + Bp * block) * 4,
-                    2 * Bp * block * dp)
+    b, o = RL.kernel_bound_ms("gather_dist_tile", B=Bp, tile=block, dp=dp)
     x_tile = xpad[int(base[0]) * block:(int(base[0]) + 1) * block]
     kernels["gather_dist_tile"] = dict(
         name="gather_dist_tile", route="cuda",
@@ -1891,8 +2036,8 @@ def main(argv=None) -> int:
     popc_rate, popc_note = popc_ops_per_s(torch)
     log(f"[kernels] popcount rate {popc_rate:.4g} /s: {popc_note}")
     report["popc_ops_per_s"] = dict(rate=popc_rate, source=popc_note)
-    b, o = bound_ms((Bp * W + block * W + Bp * block) * 4, Bp * block * W,
-                    popc_rate)
+    b, o = RL.kernel_bound_ms("bitset_dist", B=Bp, N=block, W=W,
+                              popc_rate=popc_rate)
     kernels["bitset_dist"] = dict(
         name="bitset_dist", route="cuda",
         source="src/repro_torch/csrc/bitset_dist.cu",
@@ -1912,8 +2057,8 @@ def main(argv=None) -> int:
     bool_ms = cuda_ms(torch, lambda: ops.subset_deficit(sat_w, hot), 10)
     bool_plain = cuda_ms(torch, lambda: ref.subset_deficit(sat_w, hot), 3,
                          warmup=1)
-    bb, bo = bound_ms((128 * 1024 + block * 1024 + 128 * block) * 4,
-                      128 * block * 1024, popc_rate)
+    bb, bo = RL.kernel_bound_ms("bitset_dist", B=128, N=block, W=1024,
+                                popc_rate=popc_rate)
     log(f"[kernels] bitset_dist deficit a[128,1024] b[{block},1024]: "
         f"{bool_ms:.4f} ms (plain {bool_plain:.4f} ms, bound {bb:.4f} ms by "
         f"{bo})")
@@ -1975,8 +2120,9 @@ def main(argv=None) -> int:
 
     if args.profile:
         report["slice_a"]["profile"] = profile_main_path(
-            torch, lambda: idx.search_auto(q_all, ds.filt, k=K, ls=LS,
-                                           max_iters=MI, layout="fused"), args.profile)
+            lambda: idx.search_auto(q_all, ds.filt, k=K, ls=LS,
+                                    max_iters=MI, layout="fused"),
+            args.profile)
 
     ids_np = res.ids.cpu().numpy()
     if ids_np.shape != (NQ, K):
@@ -2043,6 +2189,9 @@ def main(argv=None) -> int:
     # -- 6. slice E: cost model, cost routing and telemetry -----------------
     report["slice_e"] = run_slice_e(torch, np, idx, ds, q_all, gt, qps, K,
                                     LS, MI)
+    # slice A's index leaves the card here, as it did before slice G; slice
+    # G serves it again from these host arrays after slice C
+    a_arrays = idx._save_arrays()
     del idx, gt
     torch.cuda.empty_cache()
 
@@ -2195,10 +2344,11 @@ def main(argv=None) -> int:
         pos = torch.full((LM_BATCH,), LM_PROMPT + LM_STEPS - 1,
                          dtype=torch.int32, device=dev)
         report["slice_c_decode_profile"] = profile_main_path(
-            torch, lambda: TT.decode_step(lm, params, cache, nxt, pos),
+            lambda: TT.decode_step(lm, params, cache, nxt, pos),
             str(Path(args.profile).with_suffix(".decode.json")))
     if not bool(torch.isfinite(dl).all()):
         raise AssertionError("decode logits are not finite")
+    cache_itemsize = cache["k"].element_size()
     del cache
     toks1 = torch.cat([toks, first[:, None]], dim=1)
     l1, _ = TT.prefill(lm, params, toks1,
@@ -2217,7 +2367,31 @@ def main(argv=None) -> int:
         f"{float(np.median(step_ms)):.3f} ms, the first step took "
         f"{t_step0 * 1e3:.1f} ms); peak memory of the prefill and decode "
         f"{peak / 2 ** 30:.2f} GiB")
+    # the prefill's and a window step's work against the card's bound:
+    # each weight read once (the embedding is tied to the LM head), the
+    # cache written (prefill) or read up to the step's position (decode,
+    # at the window's middle step)
+    w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    kv_pos = 2 * lm.n_layers * LM_BATCH * lm.n_kv_heads * lm.hd * \
+        cache_itemsize
+    mid = LM_PROMPT + LM_STEPS // 2
+    lm_roof = [
+        RL.analyze("prefill", n_bytes=w_bytes + LM_PROMPT * kv_pos,
+                   n_ops=RL.lm_model_flops(lm, LM_BATCH, LM_PROMPT,
+                                           "prefill"),
+                   rate=RL.HW["bf16_flops"], measured_s=t_prefill),
+        RL.analyze("decode", n_bytes=w_bytes + (mid + 1) * kv_pos,
+                   n_ops=RL.lm_model_flops(lm, LM_BATCH, mid, "decode"),
+                   rate=RL.HW["bf16_flops"], measured_s=t_decode)]
+    for r in lm_roof:
+        log(f"[slice C] {r.name} roofline: {r.flops:.4g} flops, "
+            f"{r.bytes:.4g} bytes; compute {r.t_comp * 1e3:.4f} ms, memory "
+            f"{r.t_mem * 1e3:.4f} ms, bound by {r.bottleneck}; measured "
+            f"{r.measured_s * 1e3:.3f} ms, {100 * r.bound_share:.2f}% of "
+            f"its bound")
     report["slice_c"] = dict(
+        roofline={r.name: dict(bound_ms=r.bound_s * 1e3, by=r.bottleneck,
+                               share=r.bound_share) for r in lm_roof},
         arch=lm.name, batch=LM_BATCH, prompt=LM_PROMPT, steps=LM_STEPS,
         prefill_s=t_prefill, prefill_first_s=t_first,
         prefill_tokens_per_s=n_tok / t_prefill, decode_ms_per_step=t_decode
@@ -2227,6 +2401,12 @@ def main(argv=None) -> int:
         decode_vs_prefill=derr)
     del params, logits, lp, l32, l32p, l1
     torch.cuda.empty_cache()
+
+    # -- 10. slice G: static analysis and launch tooling --------------------
+    g_routes = run_slice_g_routes(torch, a_arrays, dev, ds, q_all, groups, K,
+                                  LS, MI)
+    del a_arrays
+    report["slice_g"] = run_slice_g(kernels, g_routes)
 
     report["kernels"] = [kernels[n] for n in _build.SOURCES]
     report["total_s"] = time.perf_counter() - t_start

@@ -72,6 +72,10 @@ class Executor:
         self._engines: dict = {}
         self._samples: dict = {}
         self._cache_epoch: int = self.epoch
+        # analysis hook: when a list, run() appends every (key, make, args)
+        # it executes, so repro_torch.analysis.audit can replay the exact
+        # route closures this cache serves. None in serving.
+        self.trace_log: list | None = None
         # telemetry hooks (repro_torch.obs), host-side only
         self.miss_hook: Callable | None = None
         self.roll_hook: Callable | None = None
@@ -121,6 +125,8 @@ class Executor:
         """Run the route closure cached under ``(epoch,) + key``
         (``make()`` is called on the first use of a key in an epoch)."""
         self._roll_epoch()
+        if self.trace_log is not None:
+            self.trace_log.append((key, make, args))
         epoch_key = (self._cache_epoch,) + key
         fn = self._cache.get(epoch_key)
         if fn is None:

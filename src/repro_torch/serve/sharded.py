@@ -86,18 +86,31 @@ def _merge_across_shards(parts: Sequence[SearchResult], *, k: int,
     B = int(parts[0].ids.shape[0])
     gathered = []
     for res in parts:
-        packed = torch.cat(
+        packed = _send(torch.cat(
             [res.ids, res.primary.view(torch.int32),
              res.secondary.view(torch.int32), res.n_expanded[:, None],
-             res.n_dist[:, None]], dim=1).to(device)
-        GATHERS["transfers"] += 1
-        GATHERS["bytes"] += packed.numel() * packed.element_size()
+             res.n_dist[:, None]], dim=1), device)
         gathered.append(SearchResult(
             packed[:, :k], packed[:, k:2 * k].view(torch.float32),
             packed[:, 2 * k:3 * k].view(torch.float32),
             torch.zeros((B, 0), dtype=torch.int32, device=device),
             packed[:, 3 * k], packed[:, 3 * k + 1]))
     return fold_topk(gathered, k=k)
+
+
+def _send(packed: torch.Tensor, device) -> torch.Tensor:
+    """One shard's packed payload on the lead ``device``, counted in
+    ``GATHERS`` (``launch.trace_stats`` records it as a packed gather)."""
+    out = packed.to(device)
+    GATHERS["transfers"] += 1
+    GATHERS["bytes"] += out.numel() * out.element_size()
+    return out
+
+
+def _to_shard(queries: torch.Tensor, filt, device):
+    """The query batch and its filter on a shard's ``device``
+    (``launch.trace_stats`` records it as a broadcast)."""
+    return queries.to(device), _filter_to(filt, device)
 
 
 def _filter_to(filt, device):
@@ -151,7 +164,7 @@ class ShardedExecutor(Executor):
         for s, dev in enumerate(idx.mesh):
             res = self.run(key, make, idx.graph[s], idx.xb[s],
                            idx.xb_norm[s], idx.shard_attr(s), idx.entry[s],
-                           queries.to(dev), _filter_to(filt, dev))
+                           *_to_shard(queries, filt, dev))
             gids = torch.where(res.ids >= 0, res.ids + s * idx.n_loc, -1)
             parts.append(res._replace(ids=gids))
         return _merge_across_shards(parts, k=k, device=idx.device)
@@ -168,7 +181,7 @@ class ShardedExecutor(Executor):
         key = ("prefilter", "default", "f32", k, 0, 0, filt.kind, block,
                use_kernel)
         parts = [self._scan(key, idx.xb[s], idx.shard_attr(s),
-                            queries.to(dev), _filter_to(filt, dev), k=k,
+                            *_to_shard(queries, filt, dev), k=k,
                             block=block, use_kernel=use_kernel,
                             offset=s * idx.n_loc)
                  for s, dev in enumerate(idx.mesh)]

@@ -517,3 +517,110 @@ def test_cuda_reduced_prefill_kernel_matches_plain(sm90, dtype):
     tol = 1e-4 if dtype == torch.float32 else 2.0 ** -6
     assert float((got.float() - want.float()).abs().max()) <= \
         tol * float(want.float().abs().max())
+
+
+@pytest.mark.gpu
+def test_cuda_audit_holds_every_contract(sm90):
+    """The route audit on the card: the 13 single-device routes and the 4
+    sharded ones over [cuda:0] * 8, zero violations; the fused routes'
+    one gather per expansion is one fused_expand launch per iteration
+    (plus the seed fetch), the scans launch the tile kernel per block."""
+    from repro_torch.analysis.audit import run_audit
+    report = run_audit("cuda")
+    assert report["violations"] == []
+    assert len(report["routes"]) == 13
+    assert report["meta"]["device"] == "cuda:0"
+    assert report["sharded"]["meta"]["mesh"] == ["cuda:0"] * 8
+    assert len(report["sharded"]["routes"]) == 4
+    for name, r in report["routes"].items():
+        if name.startswith("graph:fused"):
+            assert r["gathers_per_expansion"] == 1, name
+            assert r["kernel_launches"]["fused_expand"] == \
+                r["iterations"][0] + 1, name
+        if name in ("prefilter", "delta"):
+            assert r["kernel_launches"] == {"gather_dist_tile": 1}, name
+
+
+@pytest.mark.gpu
+def test_cuda_fused_route_one_launch_per_expansion(sm90):
+    """The fused graph route at 2,048 rows: exactly one fused_expand
+    launch per expansion (plus the seeds), no aten gather of N-row data,
+    and the host syncs of the traversal's early-stop reads only."""
+    from repro_torch.analysis.audit import analyze_record, loop_checks
+    from repro_torch.core.jag import JAGConfig, JAGIndex
+    from repro_torch.launch.trace_stats import GATHER_OPS, record, spec
+    rng = np.random.default_rng(3)
+    n, d, B = 2048, 16, 64
+    xb = _t(rng.normal(size=(n, d)).astype(np.float32)).to(sm90)
+    bits = rng.random((n, 12)) < 0.5
+    idx = JAGIndex.build(xb, subset_table(bits, 12, device=sm90),
+                         JAGConfig(degree=16, ls_build=32, batch_size=256,
+                                   cand_pool=64, ov_max=512), device=sm90)
+    fb = np.zeros((B, 12), bool)
+    fb[:, :2] = True
+    filt = subset_filters(fb, 12, device=sm90)
+    q = _t(rng.normal(size=(B, d)).astype(np.float32)).to(sm90)
+    ex = idx.executor
+    ex.graph(q, filt, k=10, ls=32, max_iters=64, layout="fused")
+    ops.reset_launches()
+    res, recs = record(lambda: ex.graph(q, filt, k=10, ls=32, max_iters=64,
+                                        layout="fused"))
+    torch.cuda.synchronize()
+    st = analyze_record(recs, n_rows=n, adj=spec(idx.graph).key)
+    it = st["adjacency_gathers"]
+    assert it > 0 and st["gathers_per_expansion"] == 1
+    assert ops.LAUNCHES["fused_expand"] == it + 1
+    assert st["kernel_launches"] == {"fused_expand": it + 1}
+    assert not [r for r in recs if r.name in GATHER_OPS
+                and r.inputs[0].shape[:1] == (n,)
+                and r.inputs[0].key != spec(idx.graph).key]
+    assert st["host_syncs"] == loop_checks(it, 64)
+    assert st["f64_ops"] == 0
+    assert bool((res.ids >= 0).any())
+
+
+@pytest.mark.gpu
+def test_cuda_sharded_transfers_on_distinct_cards(sm90):
+    """Shards on distinct cards (every card of the machine, two or more):
+    each sharded route call records one broadcast and one packed gather
+    of B * (3k + 2) * 4 bytes per shard and no other cross-device copy,
+    as the audit counts them on a repeated card, and the exact route
+    equals the union index's scan."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards")
+    from repro_torch.core.jag import JAGConfig, JAGIndex
+    from repro_torch.distributed.sharding import serve_mesh
+    from repro_torch.launch.trace_stats import (collective_bytes,
+                                                collective_counts, record)
+    from repro_torch.serve import ShardedJAGIndex
+    S = torch.cuda.device_count()
+    rng = np.random.default_rng(11)
+    N, d, B, k = 500 * S, 24, 32, 10
+    x = rng.normal(size=(N, d)).astype(np.float32)
+    tab = subset_table(rng.random((N, 30)) < 0.5, 30, device=sm90)
+    fb = np.zeros((B, 30), bool)
+    fb[:, :3] = True
+    filt = subset_filters(fb, 30, device=sm90)
+    cfg = JAGConfig(degree=8, ls_build=16, batch_size=256, cand_pool=32)
+    mesh = serve_mesh(S)
+    sh = ShardedJAGIndex.build(x, tab, cfg, mesh=mesh)
+    union = JAGIndex.build(x, tab, cfg, device=sm90)
+    q = _t(rng.normal(size=(B, d)).astype(np.float32)).to(sm90)
+    ex = sh.executor
+    calls = {
+        "prefilter": lambda: ex.prefilter(q, filt, k=k),
+        "graph": lambda: ex.graph(q, filt, k=k, ls=32, max_iters=32),
+    }
+    for name, call in calls.items():
+        call()
+        res, recs = record(call)
+        torch.cuda.synchronize()
+        assert collective_counts(recs) == {"broadcast": S,
+                                           "packed_gather": S}, name
+        assert collective_bytes(recs)["packed_gather"] == \
+            S * B * (3 * k + 2) * 4, name
+        assert res.ids.device == mesh[0]
+    want = union.executor.prefilter(q, filt, k=k)
+    got = ex.prefilter(q, filt, k=k)
+    assert torch.equal(got.ids, want.ids)
+    assert int((want.ids >= 0).sum()) > 0
