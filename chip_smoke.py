@@ -198,6 +198,30 @@ result line:
    op. Printed per route: host syncs a call, launches and device kernels
    per expansion (or block), device busy share, longest idle gaps; then
    each kernel record's share of its bound.
+11. Slice H, the LM training step (budget 60 s): qwen3-1.7b at its
+   published width and depth (slice C's config, 1.72B parameters) with
+   float32 masters and AdamW state from ``--seed`` on the card (about
+   27.5 GB with the gradients), remat "full", ``LM_SHAPES["train_4k"]``
+   (batch 256 x 4,096) cut to 4 x 4,096 tokens as accum=2 microbatches of
+   2, ``lm_batch(step, 4, 4096, vocab, seed)``, ``OptConfig(warmup_steps=1,
+   total_steps=10)``. Attention goes through ``kernels.autograd``'s
+   Function: the kernel forward, the plain version's backward. First,
+   from the same weights, the first step's loss and grad norm without
+   the update in float32 (the split-TF32 kernel forward: exactly 112
+   launches of ``flash_attention_f32``) and with the plain bf16 attention
+   (no launch). Step 1 (warm-up) must launch ``flash_attention`` exactly
+   28 layers x (forward + remat recompute) x 2 microbatches = 112 times
+   and nothing else (the backward launches none), and its loss and grad
+   norm must agree with the plain attention's within the bf16 rule:
+   LM_BF16_NOISE x |plain bf16 - float32|. After step 2 the parameters
+   and the AdamW state are saved with ``repro_torch.checkpoint`` under the
+   temporary directory, restored onto the card and held against the live
+   state bit for bit. Steps 2 to 5 are timed one by one (host clock
+   around synchronised steps); every loss, grad norm and parameter must
+   be finite. Printed: seconds a step (the median), tokens/s, peak memory
+   over the timed steps (not the checkpoint), and the step's share of its
+   roofline bound, ``launch.roofline.lm_model_flops(kind="train")`` at
+   the bf16 rate (remat recompute not counted).
 
 The last lines are nvidia-smi's card line, one JSON object with a record
 per kernel, and ``{"ok": true, "device": {...}}``.
@@ -208,10 +232,12 @@ import argparse
 import dataclasses
 import itertools
 import json
+import math
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -228,6 +254,7 @@ F_BUILD = dict(degree=64, ls_build=96, cand_pool=192, batch_size=8192)
 F_MARGIN = 0.02                # sharded recall per routed band >= union's - it
 LM_F32_TOL = 1e-4              # float32 prefill, of the largest logit
 LM_BF16_NOISE = 2              # bf16 checks: widths of bf16's own error
+H_BATCH, H_ACCUM, H_STEPS = 4, 2, 4  # slice H: train_4k cut, timed steps
 
 
 def log(msg: str) -> None:
@@ -1703,6 +1730,201 @@ def run_slice_g(kernels, routes: dict) -> dict:
     return out
 
 
+def _bits(torch, t):
+    """A tensor's bytes, for a bit-for-bit comparison (torch.equal holds
+    -0.0 equal to 0.0)."""
+    return t.detach().reshape(-1).view(torch.uint8)
+
+
+def run_slice_h(torch, np, dev, seed: int) -> dict:
+    """Slice H: the LM training step on the card. qwen3-1.7b at its
+    published width and depth, float32 masters and AdamW state from
+    ``seed``, remat "full", LM_SHAPES["train_4k"] cut to H_BATCH sequences
+    as H_ACCUM microbatches; the first step's loss and grad norm against
+    the plain attention's within the bf16 rule; the kernel's launches; a
+    checkpoint after step 2 restored onto the card bit for bit; then the
+    timed steps. Every gate raises; returns the phase's report."""
+    from repro_torch import configs
+    from repro_torch.configs.shapes import LM_SHAPES
+    from repro_torch.data.pipelines import lm_batch
+    from repro_torch.kernels import autograd, ops, ref
+    from repro_torch.launch import roofline as RL
+    from repro_torch.models import transformer as TT
+    from repro_torch.train import (OptConfig, accumulate_grads, global_norm,
+                                   init_state, make_train_step)
+
+    t_phase = time.perf_counter()
+    lm = dataclasses.replace(configs.get(LM_ARCH).CONFIG, remat_policy="full")
+    lm32 = dataclasses.replace(lm, dtype=torch.float32)
+    full = LM_SHAPES["train_4k"]
+    seq, n_tok = full["seq"], H_BATCH * full["seq"]
+    log(f"[slice H] {lm.name}: {lm.n_layers} layers, d_model {lm.d_model}, "
+        f"vocab {lm.vocab}, {lm.param_count()} params, float32 masters and "
+        f"AdamW state, remat {lm.remat_policy}; LM_SHAPES['train_4k'] batch "
+        f"{full['batch']} x {seq} cut to {H_BATCH} x {seq} as "
+        f"accum={H_ACCUM} microbatches of {H_BATCH // H_ACCUM}, seed {seed}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = TT.init_params(lm, gen, dev).requires_grad_(True)
+    state = init_state(params)
+    ocfg = OptConfig(warmup_steps=1, total_steps=10)
+    step = make_train_step(lambda p, b: TT.loss_fn(lm, p, b), ocfg, H_ACCUM)
+
+    def batch(i):
+        return lm_batch(i, H_BATCH, seq, lm.vocab, seed)
+
+    def first_grads(cfg, impl):
+        """The first step's loss and grad norm, without the update."""
+        ops.reset_launches()
+        loss, _, grads = accumulate_grads(
+            lambda p, b: TT.loss_fn(cfg, p, b, impl=impl), params, batch(0),
+            H_ACCUM)
+        gn = float(global_norm(grads))
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        for p in params.parameters():
+            p.grad = None
+        return float(loss), gn, launches
+
+    # the yardstick: a float32 run (the split-TF32 kernel's forward), and
+    # the plain bf16 attention under autograd, from the same weights
+    l32, g32, n32 = first_grads(lm32, autograd)
+    per_step = lm.n_layers * 2 * H_ACCUM    # forward + remat recompute
+    if n32["flash_attention_f32"] != per_step or n32["flash_attention"]:
+        raise AssertionError(f"float32 step launched {n32}, not "
+                             f"{per_step} of flash_attention_f32")
+    lp, gp, np_ = first_grads(lm, ref)
+    if any(np_.values()):
+        raise AssertionError(f"the plain attention launched {np_}")
+    t_checks = time.perf_counter() - t_phase
+
+    # step 1 (warm-up): the kernel's forward, the plain version's backward
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, state, m = step(params, state, batch(0))
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    log(f"[slice H] launches in step 1: {launches} (expected "
+        f"{lm.n_layers} layers x (forward + remat recompute) x {H_ACCUM} "
+        f"microbatches = {per_step} of flash_attention; the backward "
+        "launches none)")
+    if launches["flash_attention"] != per_step or \
+            sum(launches.values()) != per_step:
+        raise AssertionError(f"step 1 launched {launches}")
+    lk, gk = float(m["loss"]), float(m["grad_norm"])
+    gate = {}
+    for what, k, p_, f in (("loss", lk, lp, l32), ("grad_norm", gk, gp, g32)):
+        noise = abs(p_ - f)
+        gate[what] = dict(kernel=k, plain=p_, float32=f, diff=abs(k - p_),
+                          bf16_vs_f32=noise, limit=LM_BF16_NOISE * noise)
+        log(f"[slice H] step 1 {what}: kernel {k!r}, plain {p_!r}, float32 "
+            f"{f!r}; |kernel - plain| {abs(k - p_):.4g} (limit "
+            f"{LM_BF16_NOISE * noise:.4g}: {LM_BF16_NOISE} x bf16 vs "
+            f"float32, {noise:.4g})")
+        if not (math.isfinite(k) and abs(k - p_) <= LM_BF16_NOISE * noise):
+            raise AssertionError(f"step 1 {what}: the kernel's {k} against "
+                                 f"the plain {p_} (limit "
+                                 f"{LM_BF16_NOISE * noise})")
+
+    # steps 2..H_STEPS + 1, timed one by one; the checkpoint after step 2
+    metrics, step_s, peak = [m], [], 0
+    ckpt = {}
+    for i in range(1, H_STEPS + 1):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch(i))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        metrics.append(m)
+        if i == 1:
+            ckpt = _slice_h_checkpoint(torch, params, state, lm)
+    losses = [float(x["loss"]) for x in metrics]
+    norms = [float(x["grad_norm"]) for x in metrics]
+    finite = all(bool(torch.isfinite(p).all()) for p in params.parameters())
+    if not (finite and all(map(math.isfinite, losses + norms))):
+        raise AssertionError(f"slice H: not finite (params {finite}, losses "
+                             f"{losses}, grad norms {norms})")
+    med = float(np.median(step_s))
+    bound = RL.lm_model_flops(lm, H_BATCH, seq, "train") / RL.HW["bf16_flops"]
+    log(f"[slice H] losses {losses}, grad norms {norms}")
+    log(f"[slice H] step {med:.4f} s (median of {H_STEPS}: "
+        f"{', '.join(f'{t:.4f}' for t in step_s)}; step 1 {t_first:.4f} s), "
+        f"{n_tok / med:.1f} tokens/s, peak memory {peak / 2 ** 30:.2f} GiB "
+        f"({peak / 1e9:.2f} GB); bound {bound:.4f} s "
+        f"({RL.lm_model_flops(lm, H_BATCH, seq, 'train'):.4g} flops at "
+        f"{RL.HW['bf16_flops']:.3g} flop/s, remat recompute not counted): "
+        f"{100 * bound / med:.2f}% of it")
+    del params, state, metrics, m
+    torch.cuda.empty_cache()
+    out = dict(arch=lm.name, batch=H_BATCH, seq=seq, accum=H_ACCUM,
+               remat=lm.remat_policy, step_s=step_s, step_median_s=med,
+               step1_s=t_first, tokens_per_s=n_tok / med, peak_bytes=peak,
+               bound_s=bound, bound_share=bound / med, losses=losses,
+               grad_norms=norms, launches=launches, f32_launches=n32,
+               first_step=gate, checkpoint=ckpt, checks_s=t_checks)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[slice H] {out['phase_s']:.1f} s (first-step checks "
+        f"{t_checks:.1f} s, checkpoint save {ckpt['save_s']:.1f} s and "
+        f"restore {ckpt['restore_s']:.1f} s)")
+    return out
+
+
+def _slice_h_checkpoint(torch, params, state, lm) -> dict:
+    """Save the live training state (under the temporary directory),
+    restore it onto the card into a template that holds no memory, and
+    hold every leaf against the live one bit for bit. The directory is
+    removed before returning."""
+    from repro_torch.checkpoint import load_pytree, save_pytree
+    from repro_torch.checkpoint.checkpoint import _flatten
+    from repro_torch.models import transformer as TT
+    from repro_torch.train import AdamWState
+
+    live = {"params": params, "opt": state}
+    n_bytes = sum(t.numel() * t.element_size()
+                  for t in _flatten(live).values())
+    root = tempfile.mkdtemp(prefix="slice_h_ckpt_")
+    try:
+        free = shutil.disk_usage(root).free
+        log(f"[slice H] checkpoint: {n_bytes / 1e9:.2f} GB of state, "
+            f"{free / 1e9:.1f} GB free where it is written")
+        t0 = time.perf_counter()
+        save_pytree(live, root, int(state.step), meta={"arch": lm.name})
+        save_s = time.perf_counter() - t0
+        meta_model = TT.LM(lm, torch.device("meta"))
+        tmpl = {"params": meta_model,
+                "opt": AdamWState(state.step, {n: torch.empty_like(
+                    t, device="meta") for n, t in state.m.items()},
+                    {n: torch.empty_like(t, device="meta")
+                     for n, t in state.v.items()})}
+        t0 = time.perf_counter()
+        got, meta = load_pytree(tmpl, root, int(state.step),
+                                device=params.embed.device)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    want, have = _flatten(live), _flatten(got)
+    if set(want) != set(have) or meta != {"arch": lm.name}:
+        raise AssertionError("checkpoint: the restored tree differs in keys")
+    bad = [k for k, w in want.items()
+           if have[k].device != w.device or have[k].dtype != w.dtype
+           or not torch.equal(_bits(torch, have[k]), _bits(torch, w))]
+    if bad:
+        raise AssertionError(f"checkpoint: {len(bad)} leaves differ from the "
+                             f"live state, e.g. {bad[:3]}")
+    log(f"[slice H] checkpoint at step {int(state.step)}: {len(want)} leaves "
+        f"saved in {save_s:.1f} s, restored onto the card in "
+        f"{restore_s:.1f} s, equal to the live state bit for bit")
+    del got, meta_model, tmpl
+    torch.cuda.empty_cache()
+    return dict(step=int(state.step), leaves=len(want), bytes=n_bytes,
+                save_s=save_s, restore_s=restore_s)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000,
@@ -2407,6 +2629,13 @@ def main(argv=None) -> int:
                                   LS, MI)
     del a_arrays
     report["slice_g"] = run_slice_g(kernels, g_routes)
+
+    # -- 11. slice H: the LM training step and checkpoints ------------------
+    report["slice_h"] = run_slice_h(torch, np, dev, args.seed)
+    kernels["flash_attention"]["train_launches"] = \
+        report["slice_h"]["launches"]["flash_attention"]
+    kernels["flash_attention_f32"]["train_launches"] = \
+        report["slice_h"]["f32_launches"]["flash_attention_f32"]
 
     report["kernels"] = [kernels[n] for n in _build.SOURCES]
     report["total_s"] = time.perf_counter() - t_start

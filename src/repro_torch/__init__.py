@@ -6,7 +6,8 @@ of the same name there: ``core/`` (filters, distances, beam search, build,
 the exact scan, the index), ``serve/`` (layout, engine, planner, dispatch,
 executor), ``stream/`` (the streaming index), ``kernels/`` (wrappers of
 the hand-written CUDA kernels in ``csrc/`` and their plain PyTorch
-versions) and ``data/``.
+versions), ``models/`` and ``train/`` (the LMs, AdamW and the train
+step), ``checkpoint/`` and ``data/``.
 
 This package imports torch and numpy, never jax and never ``repro``. Entry
 points take ``device=`` and default to ``"cuda"``; resolving a CUDA device

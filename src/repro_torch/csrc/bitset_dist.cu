@@ -33,6 +33,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 template <bool kDeficit>
@@ -195,8 +197,8 @@ extern "C" int bitset_dist_u32(const void* a, const void* b, void* out,
                                int B, int N, int W, int op, int device,
                                void* stream) {
   if (B == 0 || N == 0) return 0;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint32_t* pa = static_cast<const uint32_t*>(a);
   const uint32_t* pb = static_cast<const uint32_t*>(b);

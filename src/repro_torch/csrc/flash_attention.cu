@@ -66,6 +66,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 #include "hopper.cuh"
 
 namespace {
@@ -610,8 +612,8 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                int Tk, int D, int causal, float scale,
                                int device, void* stream) {
   if (B == 0 || H == 0 || Tq == 0) return 0;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Tk == 0)  // no key: every row is acc / max(l, 1e-30) = 0
     return static_cast<int>(cudaMemsetAsync(

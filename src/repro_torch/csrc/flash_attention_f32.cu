@@ -87,6 +87,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 #include "tf32x3.cuh"
 
 namespace {
@@ -790,8 +792,8 @@ extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
                                    int bf16, float scale, int device,
                                    void* stream) {
   if (B == 0 || H == 0 || Tq == 0) return 0;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bf16 ? launch_d<__nv_bfloat16>(q, k, v, out, scratch, B, H, Hkv, Tq,
                                         Tk, D, causal, scale, s)

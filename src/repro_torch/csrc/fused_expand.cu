@@ -40,6 +40,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -148,8 +150,8 @@ extern "C" int fused_expand_f32(const void* packed, const void* ids,
                                 void* words, int B, int C, int N, int d,
                                 int A, int device, void* stream) {
   if (B == 0 || C == 0) return 0;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   const int rw = d + 1 + A;
   const uintptr_t base = reinterpret_cast<uintptr_t>(packed);
   const int V = (rw % 4 == 0 && base % 16 == 0)  ? 4

@@ -40,6 +40,8 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -181,8 +183,8 @@ extern "C" int gather_dist(const void* xb, const void* ids, const void* q,
                            void* out, int B, int C, int N, int d, int x_bf16,
                            int device, void* stream) {
   if (B == 0 || C == 0) return 0;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return x_bf16 ? launch<__nv_bfloat16>(xb, ids, q, out, B, C, N, d, s)
                 : launch<float>(xb, ids, q, out, B, C, N, d, s);

@@ -47,6 +47,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -255,8 +257,8 @@ extern "C" int gather_dist_tile_f32(const void* xb, const void* base,
                                     int device, void* stream) {
   if (B == 0 || tile == 0) return 0;
   if (dp % kDK) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   dim3 grid((tile + kBT - 1) / kBT, (B + kBQ - 1) / kBQ);
   gather_dist_tile_kernel<<<grid, kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(

@@ -57,6 +57,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 #include "tf32x3.cuh"
 
 namespace {
@@ -349,8 +351,8 @@ extern "C" int l2dist(const void* q, const void* xb, void* out, void* scratch,
                       int B, int N, int d, int bf16, int device,
                       void* stream) {
   if (B == 0 || N == 0) return 0;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 0)   // every distance is 0
     return static_cast<int>(

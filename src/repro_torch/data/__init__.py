@@ -1,1 +1,2 @@
-"""Synthetic filtered-ANN datasets (counterpart of ``repro.data``)."""
+"""Synthetic filtered-ANN datasets and the LM token stream (counterpart of
+``repro.data``)."""

@@ -10,6 +10,12 @@ outputs with ``torch.empty``, launches on ``torch.cuda.current_stream()``
 without synchronising, raises when the launch reports a CUDA error, and adds
 one to ``LAUNCHES[name]`` for each kernel it launches. An empty output needs
 no launch: the wrapper returns it without calling the kernel or counting.
+
+No wrapper is differentiable: with grad mode on, every wrapper raises on an
+input that requires grad, on either device, so a training path cannot run
+a kernel whose output has no ``grad_fn``. Training attention goes through
+``kernels/autograd.py``, whose forward calls ``flash_attention`` here with
+grad mode off.
 """
 from __future__ import annotations
 
@@ -32,7 +38,14 @@ def reset_launches() -> None:
 
 def _on_card(*ts: torch.Tensor) -> bool:
     """True if every tensor is on one CUDA device, False if all are on the
-    CPU; raise otherwise."""
+    CPU; raise otherwise, and raise if grad mode is on and an input
+    requires grad."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(
+            "kernel wrappers have no backward: a launch through ctypes "
+            "returns an output without grad_fn, which would drop the "
+            "gradient silently; differentiate attention through "
+            "kernels.autograd.flash_attention, or call under torch.no_grad()")
     devs = {t.device for t in ts}
     if all(d.type == "cpu" for d in devs):
         return False
@@ -220,6 +233,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     128); both kernels sum short runs of instructions on the CUDA cores,
     which keeps their error against float64 at or under the plain float32
     version's. Any B * H: the kernel takes heads in chunks of 65535.
+
+    There is no backward kernel, as the TPU kernel has none (the reference
+    trains through its XLA scan). Training calls this wrapper through
+    ``kernels.autograd.FlashAttention``: its forward is this call (the
+    kernel on the card, the plain version on the CPU), and its backward
+    differentiates ``ref.flash_attention`` recomputed from q, k and v.
     """
     if not _on_card(q, k, v):
         return ref.flash_attention(q, k, v, causal=causal)

@@ -168,14 +168,19 @@ def analyze(name: str, *, n_bytes: float, n_ops: float, rate: float,
 
 
 def lm_model_flops(cfg, batch: int, tokens: int, kind: str) -> float:
-    """The useful flops of one dense-LM serving call (``LMConfig``).
+    """The useful flops of one dense-LM call (``LMConfig``).
 
     ``kind="prefill"``: ``batch`` prompts of ``tokens`` tokens, every
     layer's projections and MLP for each token, causal attention (half of
     4 T^2 hd a head), and the LM head for the last position (what
     ``transformer.prefill`` computes). ``kind="decode"``: one new token a
     lane at context length ``tokens``: projections, MLP, the LM head and
-    attention over ``tokens + 1`` keys.
+    attention over ``tokens + 1`` keys. ``kind="train"``: one training
+    step over ``batch`` sequences of ``tokens`` tokens, forward and
+    backward, 3 x (2 B T (L per_layer + head) + causal attention): the
+    head for every position, the backward twice the forward. The remat
+    recompute is not counted: it is work the step chooses, not work the
+    model needs.
     """
     d, L, H, hd = cfg.d_model, cfg.n_layers, cfg.n_heads, cfg.hd
     per_layer = d * hd * (2 * H + 2 * cfg.n_kv_heads) + 3 * d * cfg.d_ff
@@ -187,4 +192,8 @@ def lm_model_flops(cfg, batch: int, tokens: int, kind: str) -> float:
     if kind == "decode":
         return (2.0 * batch * (L * per_layer + head)
                 + 4.0 * batch * L * H * (tokens + 1) * hd)
-    raise ValueError(f"kind must be 'prefill' or 'decode', got {kind!r}")
+    if kind == "train":
+        return 3.0 * (2.0 * batch * tokens * (L * per_layer + head)
+                      + 2.0 * batch * L * H * tokens * tokens * hd)
+    raise ValueError(f"kind must be 'prefill', 'decode' or 'train', got "
+                     f"{kind!r}")

@@ -10,6 +10,7 @@ bf16 they give the reference's values bit for bit.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -56,3 +57,19 @@ def rope(x: torch.Tensor, pos: torch.Tensor,
     x1, x2 = x[..., :half], x[..., half:]
     rx = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return rx.to(x.dtype)
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Token cross-entropy in float32: the mean over tokens, or with
+    ``mask`` the masked sum over ``max(sum(mask), 1)``. logits [..., V] in
+    any float dtype, labels int [...]."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    loss = lse - ll
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(loss * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.mean(loss)

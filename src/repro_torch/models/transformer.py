@@ -1,6 +1,7 @@
 """Dense decoder-only LM on PyTorch (counterpart of
 ``repro.models.transformer``): serving through ``prefill`` and
-``decode_step``, and the teacher-forcing ``forward``.
+``decode_step``, and training through the teacher-forcing ``forward`` and
+``loss_fn``.
 
 Covers the dense configs (qwen3, minicpm, gemma): GQA with a separate
 head_dim, qk-norm, SwiGLU or GeGLU, tied embeddings, RoPE, embedding and
@@ -19,35 +20,51 @@ hand-written CUDA kernel on the card, its plain version on the CPU;
 ``prefill(..., impl=kernels.ref)`` runs the plain version on the card),
 which computes the reference's online-softmax scan in
 float32 (the reference's ``_attention_scan`` is the same function, causal
-from position 0). Decode attends over the cache in plain torch with the
-reference's two-pool merge, as the reference does without a kernel.
+from position 0). ``forward``'s attention is ``kernels.autograd``'s
+``FlashAttention``: the same kernel forward, and the plain version's
+gradient (the kernel has no backward). Decode attends over the cache in
+plain torch with the reference's two-pool merge, as the reference does
+without a kernel.
 
 The cache is updated in place: ``prefill`` writes positions [0, T) and
 zeroes the rest, ``decode_step`` writes the new token's k/v at ``cur_pos``.
 For finite values that equals the reference's padded copy and one-hot
 blend, without copying the cache each step.
 
-Everything here is inference: the flash kernel has no backward, so the
-entry points run under ``torch.no_grad`` (training is a later slice).
-Configs this slice cannot serve raise ``NotImplementedError``: MoE layers,
+Serving (``prefill``, ``decode_step``) runs under ``torch.no_grad`` on
+weights that ``init_params`` and ``params_from_jax`` return frozen
+(``requires_grad`` off); ``cast_matrices`` drops the float32 masters, so
+it is for serving only. Training turns gradients on explicitly
+(``params.requires_grad_(True)``) and keeps the float32 masters:
+``forward`` runs under autograd and, while grad mode is on, checkpoints
+each layer (``torch.utils.checkpoint``, non-reentrant) by
+``LMConfig.remat_policy``: "full" keeps only the layer's input, "dots"
+also keeps the outputs of its 2-D weight products (``aten.mm``,
+``aten.addmm``) and recomputes the rest, attention's batched products
+included (the reference's ``dots_with_no_batch_dims_saveable``).
+
+Configs this port cannot run raise ``NotImplementedError``: MoE layers,
 chunked (iRoPE/NoPE) attention and the bf16 score knobs. ``LMConfig`` has
 no fields for the reference's XLA lowering knobs (``kv_block``,
-``scan_layers``, ``unroll_kv``, ``remat_policy``), its MoE routing knobs or
-``logits_bf16``.
+``scan_layers``, ``unroll_kv``; the attention's key block changes only the
+float32 rounding), its MoE routing knobs or ``logits_bf16``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
-from ..kernels import ops
-from .layers import gelu, rms_norm, rope, scalar, silu
+from ..kernels import autograd, ops
+from .layers import gelu, rms_norm, rope, scalar, silu, softmax_cross_entropy
 
 Cache = Dict[str, torch.Tensor]
 
@@ -75,6 +92,7 @@ class LMConfig:
     vocab_pad: int = 128
     attn_p_bf16: bool = False         # bf16 score knobs: a later slice
     attn_scores_bf16: bool = False
+    remat_policy: str = "full"        # "full" | "dots" (keep matmul outputs)
 
     @property
     def hd(self) -> int:
@@ -110,6 +128,9 @@ def check_supported(cfg: LMConfig) -> None:
             "later slice of the port")
     if cfg.act not in ("silu", "gelu"):
         raise ValueError(f"act must be 'silu' or 'gelu', got {cfg.act!r}")
+    if cfg.remat_policy not in ("full", "dots"):
+        raise ValueError("remat_policy must be 'full' or 'dots', got "
+                         f"{cfg.remat_policy!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -178,6 +199,25 @@ def init_params(cfg: LMConfig, generator: torch.Generator,
     return model.requires_grad_(False)
 
 
+def _named_from_tree(cfg: LMConfig, tree) -> Dict[str, np.ndarray]:
+    """A tree shaped as the reference's parameters (``embed``,
+    ``final_norm`` and ``layers`` of arrays stacked [L, ...]) as arrays
+    under the port's parameter names (``layers.<i>.<key>``), in the order
+    of ``LM.named_parameters``."""
+    out = {}
+    for name, p in LM(cfg, torch.device("meta")).named_parameters():
+        if name.startswith("layers."):
+            _, i, key = name.split(".")
+            a = np.asarray(tree["layers"][key][int(i)])
+        else:
+            a = np.asarray(tree[name])
+        if tuple(a.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: shape {a.shape}, expected "
+                             f"{tuple(p.shape)}")
+        out[name] = a
+    return out
+
+
 def params_from_jax(cfg: LMConfig, tree, device=None) -> LM:
     """The reference's parameter tree as an ``LM``.
 
@@ -185,22 +225,28 @@ def params_from_jax(cfg: LMConfig, tree, device=None) -> LM:
     ``embed``, ``final_norm`` and ``layers`` of arrays stacked [L, ...].
     Values are copied as they are, so both packages compute on the same
     weights."""
-    dev = resolve_device(device)
-    model = LM(cfg, dev).requires_grad_(False)
-
-    def put(p: nn.Parameter, a) -> None:
-        a = np.asarray(a)
-        if tuple(a.shape) != tuple(p.shape):
-            raise ValueError(f"shape {a.shape}, expected {tuple(p.shape)}")
-        p.copy_(torch.from_numpy(np.array(a)).to(p.dtype))   # a writable copy
-
-    put(model.embed, tree["embed"])
-    put(model.final_norm, tree["final_norm"])
-    layers = tree["layers"]
-    for i, blk in enumerate(model.layers):
-        for name, p in blk.named_parameters():
-            put(p, layers[name][i])
+    model = LM(cfg, resolve_device(device)).requires_grad_(False)
+    arrays = _named_from_tree(cfg, tree)
+    for name, p in model.named_parameters():
+        p.copy_(torch.from_numpy(np.array(arrays[name])).to(p.dtype))
     return model
+
+
+def opt_state_from_jax(cfg: LMConfig, state, device=None):
+    """The reference's ``AdamWState`` (numpy leaves: ``step``, and ``m``
+    and ``v`` shaped as its parameter tree) as the port's, with ``m`` and
+    ``v`` under the parameter names of ``LM``, so that both packages can
+    run ``apply_updates`` from one state at any step."""
+    from ..train.optimizer import AdamWState
+    dev = resolve_device(device)
+
+    def named(tree):
+        return {n: torch.from_numpy(np.array(a, np.float32)).to(dev)
+                for n, a in _named_from_tree(cfg, tree).items()}
+
+    step = torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                        device=dev)
+    return AdamWState(step, named(state.m), named(state.v))
 
 
 def cast_matrices(params: LM, dtype: torch.dtype) -> LM:
@@ -309,18 +355,62 @@ def _logits(cfg: LMConfig, params: LM, x: torch.Tensor) -> torch.Tensor:
     return x @ params.embed.to(x.dtype).T
 
 
-@torch.no_grad()
-def forward(cfg: LMConfig, params: LM, tokens: torch.Tensor) -> torch.Tensor:
+# the 2-D weight products: what remat_policy "dots" keeps for backward
+_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+
+
+def _layer(cfg: LMConfig, lw: Block, x: torch.Tensor, pos: torch.Tensor,
+           impl, remat: bool) -> torch.Tensor:
+    """One training layer: ``_block``'s output, checkpointed by
+    ``cfg.remat_policy`` when ``remat`` is set and grad mode is on."""
+    def run(x):
+        return _block(cfg, lw, x, pos, impl)[0]
+    if not (remat and torch.is_grad_enabled()):
+        return run(x)
+    if cfg.remat_policy == "dots":
+        return checkpoint(run, x, use_reentrant=False, context_fn=(
+            functools.partial(create_selective_checkpoint_contexts, _DOTS)))
+    return checkpoint(run, x, use_reentrant=False)
+
+
+def forward(cfg: LMConfig, params: LM, tokens: torch.Tensor,
+            remat: bool = True, impl=autograd) -> torch.Tensor:
     """Teacher-forcing forward. tokens int [B, T] -> logits [B, T, V] in
     the compute dtype. (The reference also returns the MoE router's aux
-    loss, which is 0 for a dense config.)"""
+    loss, which is 0 for a dense config.)
+
+    Runs under autograd: with grad mode on and ``remat`` set, each layer
+    is checkpointed by ``cfg.remat_policy``. ``impl`` supplies
+    ``flash_attention``: ``kernels.autograd`` (the default: the kernel
+    forward, the plain version's gradient) or ``kernels.ref`` (the plain
+    version under autograd, on either device)."""
     check_supported(cfg)
     B, T = tokens.shape
     x = _embed(cfg, params, tokens)
     pos = torch.arange(T, device=x.device).expand(B, T)
     for lw in params.layers:
-        x, _, _ = _block(cfg, lw, x, pos, ops)
+        x = _layer(cfg, lw, x, pos, impl, remat)
     return _logits(cfg, params, x)
+
+
+def loss_fn(cfg: LMConfig, params: LM, batch,
+            impl=autograd) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token loss of ``batch["tokens"]`` int [B, T + 1] (numpy or a
+    tensor; moved to the parameters' device), with an optional
+    ``batch["loss_mask"]`` [B, T + 1]: the float32 cross-entropy of
+    ``forward`` over ``tokens[:, :-1]`` against ``tokens[:, 1:]``, the
+    logits cut to ``cfg.vocab`` (the padded rows never win). Returns
+    ``(total, {"ce", "router_aux"})``; a dense config's router aux loss is
+    0, so the total is the cross-entropy."""
+    dev = params.embed.device
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
+    logits = forward(cfg, params, tokens[:, :-1], impl=impl)
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=dev)[:, 1:]
+    ce = softmax_cross_entropy(logits[..., :cfg.vocab], tokens[:, 1:], mask)
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    return ce, {"ce": ce, "router_aux": aux}
 
 
 def init_cache(cfg: LMConfig, batch: int, max_seq: int, device=None) -> Cache:

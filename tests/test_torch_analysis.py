@@ -691,7 +691,7 @@ def test_roofline_split_and_lm_flops():
                         + 4.0 * 4 * cfg.n_layers * cfg.n_heads * (T + 1)
                         * cfg.hd)
     with pytest.raises(ValueError):
-        RL.lm_model_flops(cfg, 1, 1, "train")
+        RL.lm_model_flops(cfg, 1, 1, "serve")
 
 
 def _spec(shape, dtype="f32", device="cpu"):

@@ -219,3 +219,32 @@ if __name__ == "__main__":
     print(json.dumps(res))
     sys.exit(0 if res["port_recall"] >= res["reference_recall"] - 0.02
              else 1)
+
+
+def test_kernel_entries_set_the_device_only_through_the_guard():
+    """Every C entry that launches takes the caller's device through
+    ``csrc/device_guard.cuh``'s ``DeviceGuard``, which restores the
+    caller's current device on every return path: no source calls
+    ``cudaSetDevice`` itself, and each launching entry declares the guard
+    before anything else touches the card."""
+    import re
+    from repro_torch.kernels import _build
+    header = (_build.CSRC / "device_guard.cuh").read_text()
+    assert "class DeviceGuard" in header
+    assert header.count("cudaSetDevice(") == 2      # set, restore
+    entries = 0
+    for name in _build.SOURCES:
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        assert "cudaSetDevice" not in src, name
+        assert '#include "device_guard.cuh"' in src, name
+        for sig, body in re.findall(
+                r'extern "C" \w[\w ]*?\(([^)]*)\)\s*\{(.*?)\n\}', src,
+                re.S):
+            if "int device" not in sig:
+                continue                  # a scratch-size query
+            entries += 1
+            call = re.search(r"\bcuda[A-Z]\w*\(|<<<", body)   # API or launch
+            guard = body.find("const DeviceGuard guard(device);")
+            assert 0 <= guard and (call is None or guard < call.start()), \
+                name
+    assert entries == len(_build.SOURCES) == 7

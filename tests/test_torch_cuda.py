@@ -18,7 +18,10 @@ bf16 step, 2^-7 of the value, plus 1e-5: the tensor-core kernel rounds p
 to bf16 as p_hi + p_lo, about 2^-17 of p (``test_torch_kernels.py``).
 The reduced LM's prefill with the kernel agrees with the plain attention
 within 1e-4 (float32) and 2^-6 (bf16) of its largest logit, as
-``test_torch_lm.py`` states.
+``test_torch_lm.py`` states; its training loss and gradients with the
+kernel forward agree with the plain attention's within
+``test_torch_train.py``'s tolerances (2e-5 float32, 2^-6 bf16). On two or
+more cards, a launch on ``cuda:1`` must leave card 0 current (F10).
 """
 import dataclasses
 
@@ -624,3 +627,157 @@ def test_cuda_sharded_transfers_on_distinct_cards(sm90):
     got = ex.prefilter(q, filt, k=k)
     assert torch.equal(got.ids, want.ids)
     assert int((want.ids >= 0).sum()) > 0
+
+
+def _seven_launches(dev, gen):
+    """One tiny call of each of the seven C entries on ``dev``, as
+    (kernel name, kernel call, plain call, check of the two outputs)."""
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def ints(hi, *shape):
+        return torch.randint(0, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+    d = 16
+    x = rnd(64, d)
+    packed = torch.cat([x, (x * x).sum(-1, keepdim=True),
+                        ints(1 << 20, 64, 2).float()], 1).contiguous()
+    q = rnd(3, d)
+    qn = (q * q).sum(-1)
+    ids = ints(64, 3, 5)
+    base = ints(4, 3)
+    xbt = rnd(4 * 32, d)
+    wa, wb = ints(1 << 30, 3, 2), ints(1 << 30, 9, 2)
+    fq, fk, fv = rnd(1, 2, 40, 64), rnd(1, 1, 40, 64), rnd(1, 1, 40, 64)
+
+    def close(rel):
+        return lambda got, want: bool(
+            ((got - want).abs() <= rel * (want.abs() + 1)).all())
+
+    def fused(got, want):
+        return close(1e-5)(got[0], want[0]) and torch.equal(
+            got[1].view(torch.int32), want[1].contiguous().view(torch.int32))
+
+    def flash_bf16(got, want):
+        return bool(((got.float() - want.float()).abs()
+                     <= 2.0 ** -7 * want.float().abs() + 1e-5).all())
+    fb = [t.to(torch.bfloat16) for t in (fq, fk, fv)]
+    return [
+        ("fused_expand", lambda m: m.fused_expand(packed, ids, q, qn, d=d),
+         fused),
+        ("gather_dist_tile",
+         lambda m: m.gather_dist_tile(xbt, base, q, tile=32), torch.equal),
+        ("bitset_dist", lambda m: m.bitset_dist(wa, wb, op="deficit"),
+         torch.equal),
+        ("gather_dist", lambda m: m.gather_dist(x, ids, q), close(1e-5)),
+        ("l2dist", lambda m: m.l2dist(q, x), close(1e-5)),
+        ("flash_attention", lambda m: m.flash_attention(*fb), flash_bf16),
+        ("flash_attention_f32", lambda m: m.flash_attention(fq, fk, fv),
+         close(1e-4)),
+    ]
+
+
+@pytest.mark.gpu
+def test_cuda_launch_on_another_card_keeps_the_current_device(sm90):
+    """F10: with card 0 current, each of the seven C entries launched on
+    cuda:1 leaves card 0 current (so the next ``device="cuda"``
+    allocation stays on card 0) and agrees with its plain version."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards")
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 1)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    calls = _seven_launches(dev, gen)
+    assert sorted(n for n, _, _ in calls) == sorted(ops.LAUNCHES)
+    for name, call, same in calls:
+        before = ops.LAUNCHES[name]
+        got = call(ops)
+        assert ops.LAUNCHES[name] == before + 1, name
+        assert torch.cuda.current_device() == 0, name
+        assert torch.empty(1, device="cuda").device.index == 0, name
+        torch.cuda.synchronize(dev)
+        assert same(got, call(ref)), name
+
+
+def _train_pair(sm90, dtype, accum=1):
+    """The reduced qwen3's loss and gradients on the card through the
+    Function (kernel forward) and through the plain attention."""
+    from repro_torch.data.pipelines import lm_batch
+    from repro_torch.kernels import autograd
+    from repro_torch.train import accumulate_grads
+    cfg = dataclasses.replace(configs.get("qwen3-1.7b").REDUCED, dtype=dtype)
+    params = TT.init_params(cfg, torch.Generator(device=sm90).manual_seed(0),
+                            device=sm90).requires_grad_(True)
+    batch = lm_batch(0, 2 * accum, 100, cfg.vocab, seed=1)
+    out = {}
+    for name, impl in (("kernel", autograd), ("plain", ref)):
+        ops.reset_launches()
+        loss, _, grads = accumulate_grads(
+            lambda p, b: TT.loss_fn(cfg, p, b, impl=impl), params, batch,
+            accum)
+        torch.cuda.synchronize()
+        out[name] = (loss, {n: g.clone() for n, g in grads.items()},
+                     dict(ops.LAUNCHES))
+    return cfg, out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_reduced_training_kernel_matches_plain(sm90, dtype):
+    """The training loss and every gradient with the kernel's forward
+    against the plain attention under autograd, at the CPU tests'
+    tolerances (test_torch_train.py: 2e-5 in float32, 2^-6 in bf16, of
+    the largest); the kernel of the dtype launches once per layer in the
+    forward and once in the remat recompute, and the backward none."""
+    cfg, out = _train_pair(sm90, dtype)
+    tol = 2e-5 if dtype == torch.float32 else 2.0 ** -6
+    name = _flash_kernel(dtype, cfg.hd)
+    (lk, gk, nk), (lp, gp, np_) = out["kernel"], out["plain"]
+    assert nk[name] == 2 * cfg.n_layers
+    assert sum(nk.values()) == nk[name] and sum(np_.values()) == 0
+    assert abs(float(lk) - float(lp)) <= tol * abs(float(lp))
+    for n, g in gp.items():
+        assert bool(torch.isfinite(gk[n]).all()) and bool((gk[n] != 0).any())
+        err = float((gk[n] - g).abs().max())
+        assert err <= tol * float(g.abs().max()), (n, err)
+
+
+@pytest.mark.gpu
+def test_cuda_train_steps_and_checkpoint_round_trip(sm90, tmp_path):
+    """Two bf16 steps at accum=2 on the card (the kernel launched 2 x
+    layers x microbatches times a step), then a checkpoint of the
+    parameters and the AdamW state restored onto the card and onto the
+    CPU, bit for bit."""
+    from repro_torch.checkpoint import load_pytree, save_pytree
+    from repro_torch.data.pipelines import lm_batch
+    from repro_torch.train import OptConfig, init_state, make_train_step
+    cfg = configs.get("qwen3-1.7b").REDUCED
+    params = TT.init_params(cfg, torch.Generator(device=sm90).manual_seed(0),
+                            device=sm90).requires_grad_(True)
+    state = init_state(params)
+    step = make_train_step(lambda p, b: TT.loss_fn(cfg, p, b),
+                           OptConfig(warmup_steps=1, total_steps=4), accum=2)
+    for s in range(2):
+        ops.reset_launches()
+        params, state, m = step(params, state, lm_batch(s, 4, 64, cfg.vocab))
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["flash_attention"] == 2 * cfg.n_layers * 2
+        assert all(bool(torch.isfinite(v)) for v in m.values())
+    live = {"params": params, "opt": state,
+            "bf16": params.embed.detach().to(torch.bfloat16)}
+    save_pytree(live, str(tmp_path), 2)
+    from repro_torch.checkpoint.checkpoint import _flatten
+    want = _flatten(live)
+    for dev in (sm90, torch.device("cpu")):
+        fresh = TT.LM(cfg, torch.device("meta"))
+        tmpl = {"params": fresh, "opt": init_state(params),
+                "bf16": live["bf16"]}
+        got, _ = load_pytree(tmpl, str(tmp_path), 2, device=dev)
+        flat = _flatten(got)
+        assert set(flat) == set(want)
+        for k, w in want.items():
+            assert flat[k].device.type == dev.type, k
+            assert flat[k].dtype == w.dtype, k
+            assert torch.equal(flat[k].cpu().reshape(-1).view(torch.uint8),
+                               w.detach().cpu().reshape(-1).view(
+                                   torch.uint8)), k

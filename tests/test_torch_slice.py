@@ -152,9 +152,12 @@ def test_port_imports_neither_jax_nor_repro():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 34, names\n"
+        "assert len(names) >= 68, names\n"
         "assert {'repro_torch.core.quantized', 'repro_torch.stream.delta',"
-        " 'repro_torch.stream.index'} <= set(names), names\n"
+        " 'repro_torch.stream.index', 'repro_torch.train.optimizer',"
+        " 'repro_torch.train.steps', 'repro_torch.kernels.autograd',"
+        " 'repro_torch.data.pipelines',"
+        " 'repro_torch.checkpoint.checkpoint'} <= set(names), names\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(src))
     out = subprocess.run([sys.executable, "-c", code], env=env,
