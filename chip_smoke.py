@@ -222,6 +222,36 @@ result line:
    over the timed steps (not the checkpoint), and the step's share of its
    roofline bound, ``launch.roofline.lm_model_flops(kind="train")`` at
    the bf16 rate (remat recompute not counted).
+12. Slice I, llama4 serving (budget 60 s): llama4-scout-17b-a16e at its
+   published width (d_model 5120, 40 heads over 8 kv heads, head_dim 128,
+   d_ff 8192, vocab 202,048, 16 experts top-1 with the shared expert on
+   every layer, attn_chunk 8192, every 4th layer global without RoPE),
+   cut to 4 of its 48 layers (one iRoPE period: 9.84B parameters, random
+   from ``--seed``, float32 masters for the checks, then bf16), after
+   slice H's state is freed. ``LM_SHAPES["prefill_32k"]`` cut to 2 x
+   12,288 prompt tokens: one whole chunk and a tail of 4,096, so a
+   chunked layer launches the kernel twice and the global one once.
+   ``flash_attention`` at the global layer's shape (q [2, 40, 12288,
+   128], a GQA group of 5) against the plain version in both dtypes;
+   the float32 prefill launches ``flash_attention_f32`` exactly 7 times
+   and its logits match the plain attention within 1e-4 of the largest;
+   a float32 decode step at position 12,288 matches a prefill of 12,289
+   tokens within 1e-4 of the largest logit, with the MoE's capacity
+   lifted (capacity_factor 8, cap = N / 2, one lane) and no token
+   dropped in either (checked): at the served
+   capacity a prefill of T + 1 tokens may drop a token that the decode
+   step keeps, so that figure is printed per lane with the layers that
+   dropped the last token, without a gate. In bf16 (``cast_matrices``;
+   the router stays float32) the prefill launches ``flash_attention``
+   exactly 7 times and nothing else, and its logits stay within 2x bf16's
+   own distance to float32 of the plain attention's. Then the timed
+   serving: a second prefill (host clock around synchronised work) and
+   16 greedy decode steps (one window). Printed: tokens/s, decode ms a
+   step, peak memory of the serving calls, tokens dropped by capacity and
+   experts used a layer, and each call's share of its roofline bound
+   (``lm_model_flops`` counts the top-1 expert, the shared expert and the
+   router, and each chunk's own keys; the bytes count the experts the
+   call's tokens use).
 
 The last lines are nvidia-smi's card line, one JSON object with a record
 per kernel, and ``{"ok": true, "device": {...}}``.
@@ -255,6 +285,8 @@ F_MARGIN = 0.02                # sharded recall per routed band >= union's - it
 LM_F32_TOL = 1e-4              # float32 prefill, of the largest logit
 LM_BF16_NOISE = 2              # bf16 checks: widths of bf16's own error
 H_BATCH, H_ACCUM, H_STEPS = 4, 2, 4  # slice H: train_4k cut, timed steps
+I_ARCH = "llama4-scout-17b-a16e"
+I_LAYERS, I_BATCH, I_PROMPT, I_STEPS = 4, 2, 12288, 16   # slice I's cuts
 
 
 def log(msg: str) -> None:
@@ -1925,6 +1957,306 @@ def _slice_h_checkpoint(torch, params, state, lm) -> dict:
                 save_s=save_s, restore_s=restore_s)
 
 
+class RouteLog:
+    """While installed, keeps the ``Routing`` of each ``transformer.route``
+    call (one a MoE layer, in layer order), so that a run's dropped tokens
+    and the experts it used can be read afterwards. The calls go through
+    unchanged."""
+
+    def __init__(self, TT):
+        self.TT, self.calls = TT, []
+
+    def __enter__(self):
+        self._orig = fn = self.TT.route
+
+        def rec(*args, **kw):
+            r = fn(*args, **kw)
+            self.calls.append(r)
+            return r
+        self.TT.route = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.TT.route = self._orig
+        return False
+
+    def dropped(self) -> list:
+        return [int((~r.keep).sum()) for r in self.calls]
+
+    def experts_used(self) -> list:
+        return [int(r.eidx.unique().numel()) for r in self.calls]
+
+    def token_dropped(self, token: int) -> list:
+        """Whether the token at flat index ``token`` was dropped, a layer."""
+        return [not bool(r.keep[(r.order == token).nonzero()[0, 0]])
+                for r in self.calls]
+
+
+def run_slice_i(torch, np, dev, seed: int, kernels: dict) -> dict:
+    """Slice I: llama4 serving on the card. llama4-scout-17b-a16e at its
+    published width, cut to one iRoPE period of I_LAYERS layers, random
+    weights from ``seed``; LM_SHAPES["prefill_32k"] cut to I_BATCH prompts
+    of I_PROMPT tokens, then I_STEPS greedy decode steps. The kernels
+    against their plain versions at the global layer's attention shape;
+    in float32 the split-TF32 kernel's prefill against the plain
+    attention, and a decode step against a prefill of one more token; in
+    bf16 after ``cast_matrices`` the kernel's launches and logits (the
+    bf16 rule), then the timed serving calls. Records each kernel's
+    launches under ``llama4_launches``. Every gate raises; returns the
+    phase's report."""
+    from repro_torch import configs
+    from repro_torch.configs.shapes import LM_SHAPES
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import roofline as RL
+    from repro_torch.models import transformer as TT
+
+    def biggest(t):
+        return float(t.float().abs().max())
+
+    t_phase = time.perf_counter()
+    full = configs.get(I_ARCH).CONFIG
+    lm = dataclasses.replace(full, n_layers=I_LAYERS)
+    lm32 = dataclasses.replace(lm, dtype=torch.float32)
+    B, T, C, E = I_BATCH, I_PROMPT, lm.attn_chunk, lm.n_experts
+    shp = LM_SHAPES["prefill_32k"]
+    # kernel launches a prefill: 2 a chunked layer (whole chunks, tail)
+    want = sum(1 if TT._layer_flags(lm, i)[0] or T <= C or T % C == 0
+               else 2 for i in range(lm.n_layers))
+    log(f"[slice I] {lm.name}: d_model {lm.d_model}, {lm.n_heads} heads, "
+        f"{lm.n_kv_heads} kv heads, head_dim {lm.hd}, d_ff {lm.d_ff}, vocab "
+        f"{lm.vocab}, {E} experts top-1 with the shared expert (moe_every "
+        f"{lm.moe_every}), capacity factor {lm.capacity_factor}, "
+        f"attn_chunk {C}, every {lm.global_every}th layer global (NoPE), "
+        f"rope_theta {lm.rope_theta}; seed {seed}")
+    log(f"[slice I] depth cut: {full.n_layers} -> {lm.n_layers} layers (one "
+        f"iRoPE period: layers 0-2 chunked with RoPE, layer 3 global NoPE), "
+        f"{full.param_count()} -> {lm.param_count()} parameters "
+        f"({lm.active_param_count()} active a token), to fit one card in "
+        f"float32; shape cut: LM_SHAPES['prefill_32k'] batch {shp['batch']} "
+        f"x {shp['seq']} -> {B} x {T} (one whole chunk and a tail of "
+        f"{T % C}), then {I_STEPS} greedy decode steps")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    # the kernels at the global layer's attention shape (a GQA group of 5)
+    shapes = ((B, lm.n_heads, T, lm.hd), (B, lm.n_kv_heads, T, lm.hd),
+              (B, lm.n_kv_heads, T, lm.hd))
+    fq, fk, fv = (torch.randn(sh, generator=gen, device=dev) for sh in shapes)
+    ferr = {"float32": check_flash(torch, ops, ref, fq, fk, fv),
+            "bfloat16": check_flash(torch, ops, ref, *(
+                t.to(lm.dtype) for t in (fq, fk, fv)))}
+    log(f"[slice I] flash_attention at q[{','.join(map(str, shapes[0]))}] "
+        f"kv[{','.join(map(str, shapes[1]))}] against the plain version: "
+        f"max |d| {ferr['bfloat16']:.4g} (bf16), {ferr['float32']:.4g} "
+        "(float32)")
+    del fq, fk, fv
+
+    t0 = time.perf_counter()
+    params = TT.init_params(lm, gen, dev)
+    toks = torch.randint(0, lm.vocab, (B, T), generator=gen, device=dev)
+
+    # float32: the kernel against the plain attention, sum order only
+    c32 = TT.init_cache(lm32, B, T + 1, dev)
+    ops.reset_launches()
+    l32, c32 = TT.prefill(lm32, params, toks, c32)
+    torch.cuda.synchronize()
+    n32 = (ops.LAUNCHES["flash_attention_f32"], ops.LAUNCHES["flash_attention"])
+    log(f"[slice I] float32 prefill: flash_attention_f32 launched {n32[0]} "
+        f"times, flash_attention {n32[1]} (expected {want}, 0)")
+    if n32 != (want, 0):
+        raise AssertionError(f"float32 prefill launched {n32}, not "
+                             f"({want}, 0)")
+    l32p, _ = TT.prefill(lm32, params, toks, TT.init_cache(lm32, B, T, dev),
+                         impl=ref)
+    err32 = biggest(l32 - l32p)
+    log(f"[slice I] float32 prefill, kernel vs plain attention: max |d| "
+        f"{err32:.3g} of largest logit {biggest(l32p):.4g}")
+    if err32 > LM_F32_TOL * biggest(l32p):
+        raise AssertionError("float32 prefill: the kernel moves the logits "
+                             f"by {err32} (> {LM_F32_TOL} of the largest)")
+
+    # decode at position T against a prefill of T + 1 tokens. Capacity
+    # makes the MoE depend on the batch: a prefill of T + 1 routes one more
+    # token a lane and may drop it or displace another lane's token, where
+    # a decode step routes B tokens and drops none. So the gate lifts the
+    # capacity to half of one lane's tokens (capacity_factor E / 2; the
+    # [E, cap, d_ff] expert batch of cap = N fits no card beside the
+    # float32 weights) and holds that nothing was dropped, which makes the
+    # MoE the same function of each token in both; the served capacity's
+    # figure is printed beside it, with the drops that explain it.
+    nxt = l32[:, :lm.vocab].argmax(-1)
+    pos = torch.full((B,), T, dtype=torch.int32, device=dev)
+    ld, _ = TT.decode_step(lm32, params, c32, nxt, pos)
+    toks1 = torch.cat([toks, nxt[:, None]], dim=1)
+    del c32
+    with RouteLog(TT) as rlog:
+        lb, _ = TT.prefill(lm32, params, toks1,
+                           TT.init_cache(lm32, B, T + 1, dev))
+    served_derr = [biggest(ld[b] - lb[b]) for b in range(B)]
+    last_dropped = {b: [i for i, d in enumerate(rlog.token_dropped(
+        b * (T + 1) + T)) if d] for b in range(B)}
+    del rlog, lb, ld
+    lift = dataclasses.replace(lm32, capacity_factor=E / 2)
+    torch.cuda.empty_cache()
+    c1 = TT.init_cache(lift, 1, T + 1, dev)
+    with RouteLog(TT) as rlog:
+        la, c1 = TT.prefill(lift, params, toks[:1], c1)
+        nxt1 = la[:, :lm.vocab].argmax(-1)
+        ld, _ = TT.decode_step(lift, params, c1, nxt1, pos[:1])
+        del c1
+        lb, _ = TT.prefill(lift, params,
+                           torch.cat([toks[:1], nxt1[:, None]], 1),
+                           TT.init_cache(lift, 1, T + 1, dev))
+    if any(rlog.dropped()):
+        raise AssertionError(f"capacity factor {E / 2} still dropped tokens "
+                             f"{rlog.dropped()}: the decode check needs none")
+    del rlog
+    derr = biggest(ld - lb)
+    log(f"[slice I] float32 decode at position {T} vs a prefill over {T + 1} "
+        f"tokens, capacity lifted (factor {E / 2}, one lane, no token "
+        f"dropped): max |d| {derr:.3g} of largest logit {biggest(lb):.4g} "
+        f"(limit "
+        f"{LM_F32_TOL} of it); at the served capacity, per lane (no gate): "
+        f"{', '.join(f'{e:.3g}' for e in served_derr)}, the prefill's last "
+        f"token dropped in layers {last_dropped}")
+    if derr > LM_F32_TOL * biggest(lb):
+        raise AssertionError(f"decode disagrees with prefill by {derr} "
+                             f"(> {LM_F32_TOL} of {biggest(lb)})")
+    del la, ld, lb, l32
+
+    # bf16 serving: matrices and experts stored in bf16 (the router stays
+    # float32); the kernel's launches, and its logits against the plain
+    # attention within LM_BF16_NOISE x bf16's own distance to float32
+    TT.cast_matrices(params, lm.dtype)
+    torch.cuda.empty_cache()
+    cache = TT.init_cache(lm, B, T + I_STEPS, dev)
+    t_setup = time.perf_counter() - t0
+    ops.reset_launches()
+    with RouteLog(TT) as rlog:
+        logits, cache = TT.prefill(lm, params, toks, cache)
+    torch.cuda.synchronize()
+    lc = dict(ops.LAUNCHES)
+    dropped, used, cap = rlog.dropped(), rlog.experts_used(), \
+        rlog.calls[0].cap
+    del rlog
+    log(f"[slice I] launches in the bf16 prefill: {lc} (expected {want} of "
+        f"flash_attention: 2 a chunked layer, 1 the global one)")
+    if lc["flash_attention"] != want or sum(lc.values()) != want:
+        raise AssertionError(f"bf16 prefill launched {lc}, not {want} of "
+                             "flash_attention and nothing else")
+    kernels["flash_attention"]["llama4_launches"] = lc["flash_attention"]
+    kernels["flash_attention_f32"]["llama4_launches"] = n32[0]
+    log(f"[slice I] MoE: {B * T} tokens a layer at cap {cap} an expert "
+        f"({E} x {cap} = {E * cap} expert rows); dropped by capacity a "
+        f"layer: {dropped}; experts used a layer: {used}")
+    lp, _ = TT.prefill(lm, params, toks, cache, impl=ref)
+    noise = biggest(lp.float() - l32p)
+    tol = LM_BF16_NOISE * noise
+    err = biggest(logits - lp)
+    log(f"[slice I] bf16 prefill, kernel vs plain attention: max |d| "
+        f"{err:.4g} (limit {tol:.4g}: {LM_BF16_NOISE} x bf16 vs float32, "
+        f"{noise:.4g})")
+    if err > tol:
+        raise AssertionError(f"bf16 prefill: the kernel moves the logits by "
+                             f"{err} (> {tol})")
+    del lp, l32p
+
+    # serving alone from here: the prefill's second call, then the decode
+    # steps; the peak covers these and nothing of the checks above
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, cache = TT.prefill(lm, params, toks, cache)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    if tuple(logits.shape) != (B, lm.padded_vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} are not "
+                             "finite or not [B, V]")
+
+    def decode(i, tok):
+        p = torch.full((B,), T + i, dtype=torch.int32, device=dev)
+        dl, _ = TT.decode_step(lm, params, cache, tok, p)
+        return dl, dl[:, :lm.vocab].argmax(-1)
+
+    t0 = time.perf_counter()
+    with RouteLog(TT) as rlog:
+        dl, nxt = decode(0, logits[:, :lm.vocab].argmax(-1))
+    torch.cuda.synchronize()
+    t_step0 = time.perf_counter() - t0
+    dec_used = rlog.experts_used()
+    del rlog
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(I_STEPS)]
+    t0 = time.perf_counter()
+    marks[0].record()
+    for i in range(1, I_STEPS):
+        dl, nxt = decode(i, nxt)
+        marks[i].record()
+    torch.cuda.synchronize()
+    t_decode = (time.perf_counter() - t0) / (I_STEPS - 1)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    if not bool(torch.isfinite(dl).all()):
+        raise AssertionError("decode logits are not finite")
+    n_tok = B * T
+    log(f"[slice I] prefill {n_tok} tokens in {t_prefill * 1e3:.1f} ms: "
+        f"{n_tok / t_prefill:.1f} tokens/s; decode {t_decode * 1e3:.3f} ms "
+        f"per step of {B} tokens (steps 2-{I_STEPS} in one window; median "
+        f"step {float(np.median(step_ms)):.3f} ms, the first step took "
+        f"{t_step0 * 1e3:.1f} ms); peak memory of the prefill and decode "
+        f"{peak / 2 ** 30:.2f} GiB ({peak / 1e9:.2f} GB)")
+
+    # the prefill's and a window step's work against the card's bound:
+    # each weight the call needs read once (the experts its tokens use;
+    # the embedding is tied to the LM head), the cache written (prefill)
+    # or read over the keys each layer attends to (decode, at the window's
+    # middle step); the flops count the top-1 expert a token
+    w_all = sum(p.numel() * p.element_size() for p in params.parameters())
+    e_bytes = 3 * lm.d_model * lm.d_ff * params.layers[0].e_gate.element_size()
+    kv_pos = 2 * B * lm.n_kv_heads * lm.hd * cache["k"].element_size()
+    mid = T + I_STEPS // 2
+    keys = sum(mid % C + 1 if (i + 1) % lm.global_every else mid + 1
+               for i in range(lm.n_layers))
+    roof = [
+        RL.analyze("prefill", n_bytes=w_all - e_bytes * sum(
+            E - u for u in used) + lm.n_layers * T * kv_pos,
+            n_ops=RL.lm_model_flops(lm, B, T, "prefill"),
+            rate=RL.HW["bf16_flops"], measured_s=t_prefill),
+        RL.analyze("decode", n_bytes=w_all - e_bytes * sum(
+            E - u for u in dec_used) + keys * kv_pos,
+            n_ops=RL.lm_model_flops(lm, B, mid, "decode"),
+            rate=RL.HW["bf16_flops"], measured_s=t_decode)]
+    for r in roof:
+        log(f"[slice I] {r.name} roofline: {r.flops:.4g} flops, "
+            f"{r.bytes:.4g} bytes; compute {r.t_comp * 1e3:.4f} ms, memory "
+            f"{r.t_mem * 1e3:.4f} ms, bound by {r.bottleneck}; measured "
+            f"{r.measured_s * 1e3:.3f} ms, {100 * r.bound_share:.2f}% of "
+            f"its bound")
+    log(f"[slice I] a decode step's experts used a layer: {dec_used}; its "
+        f"dense expert products read all {E} experts' "
+        f"{E * e_bytes * lm.n_layers / 1e9:.2f} GB")
+    del params, cache, logits, dl
+    torch.cuda.empty_cache()
+    out = dict(
+        arch=lm.name, layers=lm.n_layers, batch=B, prompt=T, steps=I_STEPS,
+        params=lm.param_count(), kernel_err=ferr, f32_launches=n32[0],
+        launches=lc, f32_err=err32, decode_vs_prefill=derr,
+        served_decode_vs_prefill=served_derr, last_token_dropped=last_dropped,
+        bf16_err=err, bf16_vs_f32=noise, cap=cap, dropped=dropped,
+        experts_used=used, decode_experts_used=dec_used,
+        prefill_s=t_prefill, prefill_tokens_per_s=n_tok / t_prefill,
+        decode_ms_per_step=t_decode * 1e3,
+        decode_median_ms=float(np.median(step_ms)),
+        decode_first_ms=t_step0 * 1e3, decode_step_ms=step_ms,
+        peak_bytes=peak, setup_s=t_setup,
+        roofline={r.name: dict(bound_ms=r.bound_s * 1e3, by=r.bottleneck,
+                               share=r.bound_share) for r in roof})
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[slice I] {out['phase_s']:.1f} s (set-up and float32 checks "
+        f"{t_setup:.1f} s)")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000,
@@ -2636,6 +2968,10 @@ def main(argv=None) -> int:
         report["slice_h"]["launches"]["flash_attention"]
     kernels["flash_attention_f32"]["train_launches"] = \
         report["slice_h"]["f32_launches"]["flash_attention_f32"]
+
+    # -- 12. slice I: llama4 serving -----------------------------------------
+    torch.cuda.empty_cache()
+    report["slice_i"] = run_slice_i(torch, np, dev, args.seed, kernels)
 
     report["kernels"] = [kernels[n] for n in _build.SOURCES]
     report["total_s"] = time.perf_counter() - t_start

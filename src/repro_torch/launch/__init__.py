@@ -4,7 +4,7 @@
 * :mod:`repro_torch.launch.roofline` — the card's constants (``HW``), the
   time bound of a kernel's work (``bound_ms``, ``split_bound_ms``,
   ``kernel_work``), the ``Roofline`` record of a piece of work against
-  that bound, and a dense LM's serving flops (``lm_model_flops``).
+  that bound, and an LM's serving and training flops (``lm_model_flops``).
 * :mod:`repro_torch.launch.trace_stats` — what the program did: an op
   record from a ``TorchDispatchMode`` (aten ops with shapes and dtypes,
   kernel launches, host syncs, the sharded routes' transfers) and the statistics of

@@ -168,32 +168,49 @@ def analyze(name: str, *, n_bytes: float, n_ops: float, rate: float,
 
 
 def lm_model_flops(cfg, batch: int, tokens: int, kind: str) -> float:
-    """The useful flops of one dense-LM call (``LMConfig``).
+    """The useful flops of one LM call (``LMConfig``).
 
     ``kind="prefill"``: ``batch`` prompts of ``tokens`` tokens, every
-    layer's projections and MLP for each token, causal attention (half of
+    layer's projections and FFN for each token, causal attention (half of
     4 T^2 hd a head), and the LM head for the last position (what
     ``transformer.prefill`` computes). ``kind="decode"``: one new token a
-    lane at context length ``tokens``: projections, MLP, the LM head and
+    lane at context length ``tokens``: projections, FFN, the LM head and
     attention over ``tokens + 1`` keys. ``kind="train"``: one training
     step over ``batch`` sequences of ``tokens`` tokens, forward and
-    backward, 3 x (2 B T (L per_layer + head) + causal attention): the
-    head for every position, the backward twice the forward. The remat
-    recompute is not counted: it is work the step chooses, not work the
-    model needs.
+    backward, 3 x (2 B T (sum of the layers' weights + head) + causal
+    attention): the head for every position, the backward twice the
+    forward. The remat recompute is not counted: it is work the step
+    chooses, not work the model needs.
+
+    A MoE layer counts the one expert a token takes (top-1), the shared
+    expert and the router, not the capacity's padding or the dropped
+    tokens. A chunked layer (``attn_chunk``, not global) attends within
+    its chunk: the sum of each chunk's length squared in place of T^2,
+    and for decode the keys of the new token's chunk.
     """
-    d, L, H, hd = cfg.d_model, cfg.n_layers, cfg.n_heads, cfg.hd
-    per_layer = d * hd * (2 * H + 2 * cfg.n_kv_heads) + 3 * d * cfg.d_ff
+    from ..models.transformer import _layer_flags
+    d, H, hd, C = cfg.d_model, cfg.n_heads, cfg.hd, cfg.attn_chunk
+    ffn = 3 * d * cfg.d_ff
+    weights = keys = 0          # a token's weights; keys summed over layers
+    for i in range(cfg.n_layers):
+        weights += d * hd * (2 * H + 2 * cfg.n_kv_heads) + ffn
+        if cfg._is_moe(i):
+            weights += ffn * cfg.shared_expert + d * cfg.n_experts
+        chunked = not _layer_flags(cfg, i)[0]
+        if kind == "decode":
+            keys += tokens % C + 1 if chunked else tokens + 1
+        else:
+            keys += ((tokens // C) * C * C + (tokens % C) ** 2 if chunked
+                     else tokens * tokens)
     head = cfg.padded_vocab * d
     if kind == "prefill":
-        return (2.0 * batch * tokens * L * per_layer
-                + 2.0 * batch * L * H * tokens * tokens * hd
-                + 2.0 * batch * head)
+        return float(2 * batch * tokens * weights + 2 * batch * H * keys * hd
+                     + 2 * batch * head)
     if kind == "decode":
-        return (2.0 * batch * (L * per_layer + head)
-                + 4.0 * batch * L * H * (tokens + 1) * hd)
+        return float(2 * batch * (weights + head)
+                     + 4 * batch * H * keys * hd)
     if kind == "train":
-        return 3.0 * (2.0 * batch * tokens * (L * per_layer + head)
-                      + 2.0 * batch * L * H * tokens * tokens * hd)
+        return float(3 * (2 * batch * tokens * (weights + head)
+                          + 2 * batch * H * keys * hd))
     raise ValueError(f"kind must be 'prefill', 'decode' or 'train', got "
                      f"{kind!r}")

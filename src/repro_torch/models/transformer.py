@@ -1,30 +1,44 @@
-"""Dense decoder-only LM on PyTorch (counterpart of
+"""Decoder-only LM on PyTorch (counterpart of
 ``repro.models.transformer``): serving through ``prefill`` and
 ``decode_step``, and training through the teacher-forcing ``forward`` and
 ``loss_fn``.
 
 Covers the dense configs (qwen3, minicpm, gemma): GQA with a separate
 head_dim, qk-norm, SwiGLU or GeGLU, tied embeddings, RoPE, embedding and
-residual scaling, (1 + w) RMSNorm. Parameters are an ``LM`` module whose
-names are the reference's keys (``embed``, ``final_norm`` and per layer
-``ln1``, ``ln2``, ``wq``, ``wk``, ``wv``, ``wo``, ``gate``, ``up``,
-``down``, ``qnorm``, ``knorm``), one ``Block`` per layer where the
-reference stacks them ``[L, ...]``.
+residual scaling, (1 + w) RMSNorm; and for serving the llama4 configs:
+top-1 MoE with capacity and the shared expert on every ``moe_every``-th
+layer, and iRoPE, where three of every ``global_every`` layers attend
+within chunks of ``attn_chunk`` positions with RoPE and the last is
+global without it (NoPE). Parameters are an ``LM`` module whose names are
+the reference's keys (``embed``, ``final_norm`` and per layer ``ln1``,
+``ln2``, ``wq``, ``wk``, ``wv``, ``wo``, ``gate``, ``up``, ``down``,
+``qnorm``, ``knorm``, ``router``, ``e_gate``, ``e_up``, ``e_down``), one
+``Block`` per layer where the reference stacks them ``[L, ...]``.
+
+Deviation: a ``Block`` holds ``router`` [D, E], ``e_gate``/``e_up`` [E, D,
+F] and ``e_down`` [E, F, D] on MoE layers only (``LMConfig._is_moe``). The
+reference gives every layer of a MoE config these leaves, and its dense
+layers never read them (maverick's would hold 16.1B unused parameters a
+layer), so the port's parameters number exactly ``param_count()``.
 
 The arithmetic follows the reference op for op: weights are cast to the
 compute dtype at each use, norms and rope run in float32 and cast back, the
 embedding scale, residual scale and adds and the activations run in the
-compute dtype with the scalars rounded to it (``layers.scalar``). Prefill's
-and forward's attention is ``kernels.ops.flash_attention`` (the
-hand-written CUDA kernel on the card, its plain version on the CPU;
-``prefill(..., impl=kernels.ref)`` runs the plain version on the card),
-which computes the reference's online-softmax scan in
-float32 (the reference's ``_attention_scan`` is the same function, causal
-from position 0). ``forward``'s attention is ``kernels.autograd``'s
+compute dtype with the scalars rounded to it (``layers.scalar``); the
+router runs in float32. Prefill's and forward's attention is
+``kernels.ops.flash_attention`` (the hand-written CUDA kernel on the card,
+its plain version on the CPU; ``prefill(..., impl=kernels.ref)`` runs the
+plain version on the card), which computes the reference's online-softmax
+scan in float32 (the reference's ``_attention_scan`` is the same function,
+causal from position 0). On a chunked layer the reference's mask (causal
+and within one chunk) is causal attention inside each chunk, so prefill
+runs the same kernel over the whole chunks as one batch and over the tail
+(``_attention``). ``forward``'s attention is ``kernels.autograd``'s
 ``FlashAttention``: the same kernel forward, and the plain version's
 gradient (the kernel has no backward). Decode attends over the cache in
-plain torch with the reference's two-pool merge, as the reference does
-without a kernel.
+plain torch with the reference's two-pool merge and chunk mask, as the
+reference does without a kernel. The MoE is plain torch (``_moe_ffn``), as
+the reference computes it outside any kernel.
 
 The cache is updated in place: ``prefill`` writes positions [0, T) and
 zeroes the rest, ``decode_step`` writes the new token's k/v at ``cur_pos``.
@@ -43,18 +57,20 @@ also keeps the outputs of its 2-D weight products (``aten.mm``,
 ``aten.addmm``) and recomputes the rest, attention's batched products
 included (the reference's ``dots_with_no_batch_dims_saveable``).
 
-Configs this port cannot run raise ``NotImplementedError``: MoE layers,
-chunked (iRoPE/NoPE) attention and the bf16 score knobs. ``LMConfig`` has
-no fields for the reference's XLA lowering knobs (``kv_block``,
-``scan_layers``, ``unroll_kv``; the attention's key block changes only the
-float32 rounding), its MoE routing knobs or ``logits_bf16``.
+What this port cannot run raises ``NotImplementedError``: the bf16 score
+knobs everywhere, and ``forward``/``loss_fn`` on a MoE or chunked config
+(training them needs the router aux loss in the loss and a tested
+backward through the dispatch). ``LMConfig`` has no fields for the
+reference's XLA lowering knobs (``kv_block``, ``scan_layers``,
+``unroll_kv``; the attention's key block changes only the float32
+rounding) or ``logits_bf16``.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -82,8 +98,13 @@ class LMConfig:
     act: str = "silu"                 # "silu" | "gelu" (GeGLU, tanh form)
     qk_norm: bool = False
     rope_theta: float = 10_000.0
-    n_experts: int = 0                # MoE: a later slice
-    attn_chunk: int = 0               # chunked attention: a later slice
+    n_experts: int = 0                # MoE (top-1 with capacity)
+    moe_every: int = 1                # MoE on layers with (i+1) % every == 0
+    capacity_factor: float = 1.25
+    shared_expert: bool = True
+    router_aux_weight: float = 0.01
+    attn_chunk: int = 0               # 0 -> full attention (llama4 iRoPE)
+    global_every: int = 4             # every Nth layer global (NoPE)
     emb_scale: float = 1.0
     resid_scale: float = 1.0
     norm_plus_one: bool = False       # gemma-style (1 + w) RMSNorm
@@ -104,23 +125,37 @@ class LMConfig:
                 // self.vocab_pad) * self.vocab_pad
 
     def param_count(self) -> int:
+        c = self.padded_vocab * self.d_model
         attn = self.d_model * self.hd * (2 * self.n_heads
                                          + 2 * self.n_kv_heads)
-        layer = attn + 3 * self.d_model * self.d_ff + 2 * self.d_model
-        return (self.padded_vocab * self.d_model + self.n_layers * layer
-                + self.d_model)
+        ffn = 3 * self.d_model * self.d_ff
+        for i in range(self.n_layers):
+            c += attn + 2 * self.d_model
+            if self._is_moe(i):
+                c += self.n_experts * ffn + self.d_model * self.n_experts
+                if self.shared_expert:
+                    c += ffn
+            else:
+                c += ffn
+        return c + self.d_model
+
+    def active_param_count(self) -> int:
+        c = self.padded_vocab * self.d_model
+        attn = self.d_model * self.hd * (2 * self.n_heads
+                                         + 2 * self.n_kv_heads)
+        ffn = 3 * self.d_model * self.d_ff
+        for i in range(self.n_layers):
+            c += attn + ffn + 2 * self.d_model   # top-1: one expert active
+            if self._is_moe(i) and self.shared_expert:
+                c += ffn
+        return c + self.d_model
+
+    def _is_moe(self, i: int) -> bool:
+        return self.n_experts > 0 and (i + 1) % self.moe_every == 0
 
 
 def check_supported(cfg: LMConfig) -> None:
     """Raise NotImplementedError for what this slice of the port lacks."""
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers (n_experts={cfg.n_experts}) come with "
-            "the llama4 slice of the port (MoE and chunked attention)")
-    if cfg.attn_chunk > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: chunked/NoPE attention (attn_chunk="
-            f"{cfg.attn_chunk}) comes with the llama4 slice of the port")
     if cfg.attn_p_bf16 or cfg.attn_scores_bf16:
         raise NotImplementedError(
             f"{cfg.name}: the flash-attention kernel computes scores and "
@@ -133,17 +168,32 @@ def check_supported(cfg: LMConfig) -> None:
                          f"{cfg.remat_policy!r}")
 
 
+def check_trainable(cfg: LMConfig) -> None:
+    """``check_supported``, and raise NotImplementedError on a MoE or
+    chunked config: without the router aux loss in ``loss_fn`` and a
+    tested backward through the capacity dispatch, training would compute
+    another loss than the reference's."""
+    check_supported(cfg)
+    if cfg.n_experts > 0 or cfg.attn_chunk > 0:
+        raise NotImplementedError(
+            f"{cfg.name}: training a MoE or chunked-attention config (the "
+            "router aux loss, the backward through the dispatch) comes with "
+            "the llama4 training slice of the port; it serves through "
+            "prefill and decode_step")
+
+
 # ---------------------------------------------------------------------------
 # params
 # ---------------------------------------------------------------------------
 
 class Block(nn.Module):
-    """One layer's weights, named as the reference's ``layers`` keys."""
+    """One layer's weights, named as the reference's ``layers`` keys; a
+    MoE layer (``moe``) also holds the router and the experts."""
 
-    def __init__(self, cfg: LMConfig, device=None):
+    def __init__(self, cfg: LMConfig, moe: bool, device=None):
         super().__init__()
-        D, H, K, Dh, Fd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                           cfg.d_ff)
+        D, H, K, Dh, Fd, E = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                              cfg.hd, cfg.d_ff, cfg.n_experts)
         kw = dict(dtype=cfg.param_dtype, device=device)
         self.ln1 = nn.Parameter(torch.ones(D, **kw))
         self.ln2 = nn.Parameter(torch.ones(D, **kw))
@@ -157,6 +207,12 @@ class Block(nn.Module):
         if cfg.qk_norm:
             self.qnorm = nn.Parameter(torch.ones(Dh, **kw))
             self.knorm = nn.Parameter(torch.ones(Dh, **kw))
+        self.moe = moe
+        if moe:
+            self.router = nn.Parameter(torch.empty(D, E, **kw))
+            self.e_gate = nn.Parameter(torch.empty(E, D, Fd, **kw))
+            self.e_up = nn.Parameter(torch.empty(E, D, Fd, **kw))
+            self.e_down = nn.Parameter(torch.empty(E, Fd, D, **kw))
 
 
 class LM(nn.Module):
@@ -170,17 +226,19 @@ class LM(nn.Module):
         self.embed = nn.Parameter(torch.empty(cfg.padded_vocab, cfg.d_model,
                                               **kw))
         self.final_norm = nn.Parameter(torch.ones(cfg.d_model, **kw))
-        self.layers = nn.ModuleList(Block(cfg, device)
-                                    for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(Block(cfg, cfg._is_moe(i), device)
+                                    for i in range(cfg.n_layers))
 
 
 _MATRICES = ("wq", "wk", "wv", "wo", "gate", "up", "down")
+_EXPERTS = ("router", "e_gate", "e_up", "e_down")
 
 
 def init_params(cfg: LMConfig, generator: torch.Generator,
                 device=None) -> LM:
     """Random weights, the reference's scheme: matrices N(0, 1) /
-    sqrt(fan_in) in ``param_dtype``, norms at 1. ``generator`` lives on
+    sqrt(fan_in) in ``param_dtype`` (the fan-in is the second-to-last
+    dimension, also of the [E, ...] expert tensors), norms at 1. ``generator`` lives on
     the target device (the numbers differ from jax.random's; tests carry
     the reference's weights across with ``params_from_jax``)."""
     dev = resolve_device(device)
@@ -193,9 +251,9 @@ def init_params(cfg: LMConfig, generator: torch.Generator,
 
     nrm(model.embed, cfg.d_model)
     for blk in model.layers:
-        for name in _MATRICES:
+        for name in _MATRICES + (_EXPERTS if blk.moe else ()):
             p = getattr(blk, name)
-            nrm(p, p.shape[0])        # [fan_in, fan_out]
+            nrm(p, p.shape[-2])       # [..., fan_in, fan_out]
     return model.requires_grad_(False)
 
 
@@ -203,7 +261,8 @@ def _named_from_tree(cfg: LMConfig, tree) -> Dict[str, np.ndarray]:
     """A tree shaped as the reference's parameters (``embed``,
     ``final_norm`` and ``layers`` of arrays stacked [L, ...]) as arrays
     under the port's parameter names (``layers.<i>.<key>``), in the order
-    of ``LM.named_parameters``."""
+    of ``LM.named_parameters``. A MoE config's expert leaves are taken
+    for the MoE layers only; the dense layers' slices go unused."""
     out = {}
     for name, p in LM(cfg, torch.device("meta")).named_parameters():
         if name.startswith("layers."):
@@ -250,15 +309,16 @@ def opt_state_from_jax(cfg: LMConfig, state, device=None):
 
 
 def cast_matrices(params: LM, dtype: torch.dtype) -> LM:
-    """Store every weight matrix in ``dtype`` (the compute dtype), in place;
-    the norm vectors stay as they are.
+    """Store every weight matrix and expert tensor in ``dtype`` (the
+    compute dtype), in place; the norm vectors and the router (used in
+    float32) stay as they are.
 
     Every use casts a matrix to the compute dtype first, so a model cast
     this way computes the same values without a cast of all its weights on
     each call (qwen3-1.7b holds 6.9 GB in float32); the float32 masters are
     dropped, so this is for serving."""
-    for p in params.parameters():
-        if p.dim() >= 2:
+    for name, p in params.named_parameters():
+        if p.dim() >= 2 and not name.endswith(".router"):
             p.data = p.data.to(dtype)
     return params
 
@@ -274,9 +334,105 @@ def _dense_ffn(cfg: LMConfig, lw: Block, x: torch.Tensor) -> torch.Tensor:
     return (g * u) @ lw.down.to(x.dtype)
 
 
-def _qkv(cfg: LMConfig, lw: Block, x: torch.Tensor, pos: torch.Tensor):
-    """Projections, qk-norm and rope. x [B, T, D], pos [B, T] ->
-    q [B, T, H, Dh], k/v [B, T, K, Dh]."""
+class Routing(NamedTuple):
+    """Top-1 routing of N tokens over E experts (``route``): each token's
+    expert ``eidx`` [N] and gate probability ``gate`` [N] (float32);
+    ``order`` [N], the tokens grouped by expert (a stable sort, so a group
+    keeps the tokens' order); ``keep`` [N], whether the token at each place
+    of ``order`` is among its expert's first ``cap``; ``slot`` [N], its row
+    of the [E * cap] expert batch (E * cap where dropped); and the switch
+    load-balance loss ``aux``."""
+    eidx: torch.Tensor
+    gate: torch.Tensor
+    order: torch.Tensor
+    keep: torch.Tensor
+    slot: torch.Tensor
+    cap: int
+    aux: torch.Tensor
+
+
+def route(cfg: LMConfig, router: torch.Tensor, x2d: torch.Tensor) -> Routing:
+    """The reference's routing of x2d [N, D] (``_moe_ffn``): float32 logits
+    and softmax, the first largest probability (as ``jnp.argmax``), a
+    capacity of max(8, int(capacity_factor * N / E)) tokens an expert, the
+    later tokens of a fuller group dropped."""
+    N = x2d.shape[0]
+    E = cfg.n_experts
+    cap = max(8, int(cfg.capacity_factor * N / E))
+    logits = x2d.float() @ router.float()
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    probs = e / e.sum(dim=-1, keepdim=True)        # jax.nn.softmax's ops
+    eidx = probs.argmax(dim=-1)
+    gate = probs.gather(1, eidx[:, None])[:, 0]
+    frac = torch.nn.functional.one_hot(eidx, E).float().mean(dim=0)
+    aux = E * torch.sum(frac * probs.mean(dim=0))
+    order = torch.argsort(eidx, stable=True)
+    se = eidx[order]
+    ar = torch.arange(N, device=x2d.device)
+    boundary = torch.ones(N, dtype=torch.bool, device=x2d.device)
+    boundary[1:] = se[1:] != se[:-1]
+    start = torch.cummax(torch.where(boundary, ar, 0), dim=0).values
+    pos = ar - start                               # place in its group
+    keep = pos < cap
+    slot = torch.where(keep, se * cap + pos, E * cap)
+    return Routing(eidx, gate, order, keep, slot, cap, aux)
+
+
+def _moe_ffn(cfg: LMConfig, lw: Block,
+             x2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x2d [N, D] -> (the routed experts' output [N, D], aux loss): the
+    reference's sort-based dispatch. Each expert's first ``cap`` tokens
+    fill its rows of an [E, cap, D] batch (rows left over stay 0), the
+    expert products run over all E * cap rows, and each kept token's row
+    comes back times its gate rounded to the compute dtype; a dropped
+    token gets 0."""
+    N, D = x2d.shape
+    E, dt = cfg.n_experts, x2d.dtype
+    r = route(cfg, lw.router, x2d)
+    # the extra last row takes the dropped tokens and is cut off (the
+    # reference's out-of-range scatter with mode="drop")
+    xs = x2d.new_zeros((E * r.cap + 1, D))
+    xs[r.slot] = x2d[r.order]
+    xs = xs[:-1].reshape(E, r.cap, D)
+    h = torch.bmm(xs, lw.e_gate.to(dt))
+    u = torch.bmm(xs, lw.e_up.to(dt))
+    h = (silu(h) if cfg.act == "silu" else gelu(h)) * u
+    ys = torch.bmm(h, lw.e_down.to(dt)).reshape(E * r.cap, D)
+    out = x2d.new_zeros((N + 1, D))
+    out[torch.where(r.keep, r.order, N)] = (
+        ys[torch.clamp_max(r.slot, E * r.cap - 1)] * r.keep[:, None].to(dt))
+    return out[:N] * r.gate[:, None].to(dt), r.aux
+
+
+def _ffn(cfg: LMConfig, lw: Block, h2: torch.Tensor) -> torch.Tensor:
+    """One layer's FFN on h2 [B, T, D]: the dense FFN, or on a MoE layer
+    the routed experts over the B * T tokens in row-major order plus the
+    shared expert (the layer's ``gate``, ``up``, ``down``). The router's
+    aux loss is dropped, as the reference's prefill and decode drop it."""
+    if not lw.moe:
+        return _dense_ffn(cfg, lw, h2)
+    h2d = h2.reshape(-1, h2.shape[-1])
+    y, _ = _moe_ffn(cfg, lw, h2d)
+    if cfg.shared_expert:
+        y = y + _dense_ffn(cfg, lw, h2d)
+    return y.reshape(h2.shape)
+
+
+def _layer_flags(cfg: LMConfig, i: int) -> Tuple[bool, bool]:
+    """(is_global, rope_on) of layer i: without ``attn_chunk`` every layer
+    is global with RoPE; with it every ``global_every``-th layer is global
+    without RoPE (NoPE) and the others are chunked with RoPE."""
+    if not cfg.attn_chunk:
+        return True, True
+    is_global = (i + 1) % cfg.global_every == 0
+    return is_global, not is_global
+
+
+def _qkv(cfg: LMConfig, lw: Block, x: torch.Tensor, pos: torch.Tensor,
+         rope_on: bool):
+    """Projections, qk-norm and rope (skipped on a NoPE layer, where the
+    reference's ``rope(enabled=False)`` returns its input). x [B, T, D],
+    pos [B, T] -> q [B, T, H, Dh], k/v [B, T, K, Dh]."""
     B, T, _ = x.shape
     H, K, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     h = rms_norm(x, lw.ln1, plus_one=cfg.norm_plus_one)
@@ -286,7 +442,38 @@ def _qkv(cfg: LMConfig, lw: Block, x: torch.Tensor, pos: torch.Tensor):
     if cfg.qk_norm:
         q = rms_norm(q, lw.qnorm)
         k = rms_norm(k, lw.knorm)
+    if not rope_on:
+        return q, k, v
     return rope(q, pos, cfg.rope_theta), rope(k, pos, cfg.rope_theta), v
+
+
+def _attention(cfg: LMConfig, impl, q: torch.Tensor, k: torch.Tensor,
+               v: torch.Tensor, is_global: bool) -> torch.Tensor:
+    """Attention over a prompt from position 0: q [B, T, H, Dh], k/v [B, T,
+    K, Dh] -> [B, T, H * Dh], through causal ``impl.flash_attention``.
+
+    A global layer is one call. On a chunked layer the reference's mask
+    (causal, both positions in one chunk of C = ``attn_chunk``) is causal
+    attention inside each chunk, so the whole chunks run as one call over
+    [B * (T // C), H, C, Dh] and the tail as a second over [B, H, T % C,
+    Dh]: 1 launch for T <= C, else 1 + (T % C > 0)."""
+    B, T, H, Dh = q.shape
+    C = cfg.attn_chunk
+
+    def call(q, k, v):
+        o = impl.flash_attention(q.transpose(1, 2).contiguous(),
+                                 k.transpose(1, 2).contiguous(),
+                                 v.transpose(1, 2).contiguous(), causal=True)
+        return o.transpose(1, 2).reshape(q.shape[0], q.shape[1], H * Dh)
+
+    if is_global or not C or T <= C:
+        return call(q, k, v)
+    n = T - T % C
+    parts = [call(*(t[:, :n].reshape(B * (n // C), C, *t.shape[2:])
+                    for t in (q, k, v))).reshape(B, n, H * Dh)]
+    if n < T:
+        parts.append(call(q[:, n:], k[:, n:], v[:, n:]))
+    return torch.cat(parts, dim=1)
 
 
 def _mlp_residual(cfg: LMConfig, lw: Block, x: torch.Tensor,
@@ -295,35 +482,38 @@ def _mlp_residual(cfg: LMConfig, lw: Block, x: torch.Tensor,
     rs = scalar(cfg.resid_scale, x.dtype)
     x = x + rs * (attn @ lw.wo.to(x.dtype))
     h2 = rms_norm(x, lw.ln2, plus_one=cfg.norm_plus_one)
-    return x + rs * _dense_ffn(cfg, lw, h2)
+    return x + rs * _ffn(cfg, lw, h2)
 
 
-def _block(cfg: LMConfig, lw: Block, x: torch.Tensor, pos: torch.Tensor,
-           impl=ops):
-    """One layer over a whole prompt from position 0. x [B, T, D].
+def _block(cfg: LMConfig, lw: Block, i: int, x: torch.Tensor,
+           pos: torch.Tensor, impl=ops):
+    """Layer i over a whole prompt from position 0. x [B, T, D].
     Returns (x, k, v) with k/v [B, T, K, Dh]."""
-    B, T, _ = x.shape
-    q, k, v = _qkv(cfg, lw, x, pos)
-    attn = impl.flash_attention(q.transpose(1, 2).contiguous(),
-                                k.transpose(1, 2).contiguous(),
-                                v.transpose(1, 2).contiguous(), causal=True)
-    attn = attn.transpose(1, 2).reshape(B, T, cfg.n_heads * cfg.hd)
+    is_global, rope_on = _layer_flags(cfg, i)
+    q, k, v = _qkv(cfg, lw, x, pos, rope_on)
+    attn = _attention(cfg, impl, q, k, v, is_global)
     return _mlp_residual(cfg, lw, x, attn), k, v
 
 
-def _block_decode(cfg: LMConfig, lw: Block, x: torch.Tensor,
+def _block_decode(cfg: LMConfig, lw: Block, i: int, x: torch.Tensor,
                   pos_q: torch.Tensor, pos_k: torch.Tensor,
                   kc: torch.Tensor, vc: torch.Tensor):
-    """One layer for one new token per lane. x [B, 1, D], pos_q [B, 1],
+    """Layer i for one new token per lane. x [B, 1, D], pos_q [B, 1],
     pos_k [S], kc/vc [B, S, K, Dh] (the cache before this step).
 
     Attention is the reference's two-pool merge in float32: the cache's
-    strictly earlier positions and the new token itself, combined through
-    one max. Returns (x, k, v) with the new token's k/v [B, 1, K, Dh]."""
+    strictly earlier positions (on a chunked layer only those in the new
+    token's chunk) and the new token itself, combined through one max.
+    Returns (x, k, v) with the new token's k/v [B, 1, K, Dh]."""
     B, T, _ = x.shape
     H, K, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q, kn, vn = _qkv(cfg, lw, x, pos_q)
-    mask_prev = (pos_k[None, :] < pos_q)[:, None, None, None, :]
+    is_global, rope_on = _layer_flags(cfg, i)
+    q, kn, vn = _qkv(cfg, lw, x, pos_q, rope_on)
+    mask_prev = pos_k[None, :] < pos_q
+    if not is_global:
+        C = cfg.attn_chunk
+        mask_prev = mask_prev & (pos_k[None, :] // C == pos_q // C)
+    mask_prev = mask_prev[:, None, None, None, :]
     qf = q.reshape(B, T, K, H // K, Dh).float() / math.sqrt(Dh)
     s_self = torch.einsum("btkgd,btkd->btkg", qf, kn.float())
     s_prev = torch.einsum("btkgd,bskd->btkgs", qf, kc.float())
@@ -359,12 +549,12 @@ def _logits(cfg: LMConfig, params: LM, x: torch.Tensor) -> torch.Tensor:
 _DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
 
 
-def _layer(cfg: LMConfig, lw: Block, x: torch.Tensor, pos: torch.Tensor,
-           impl, remat: bool) -> torch.Tensor:
-    """One training layer: ``_block``'s output, checkpointed by
+def _layer(cfg: LMConfig, lw: Block, i: int, x: torch.Tensor,
+           pos: torch.Tensor, impl, remat: bool) -> torch.Tensor:
+    """Training layer i: ``_block``'s output, checkpointed by
     ``cfg.remat_policy`` when ``remat`` is set and grad mode is on."""
     def run(x):
-        return _block(cfg, lw, x, pos, impl)[0]
+        return _block(cfg, lw, i, x, pos, impl)[0]
     if not (remat and torch.is_grad_enabled()):
         return run(x)
     if cfg.remat_policy == "dots":
@@ -383,13 +573,14 @@ def forward(cfg: LMConfig, params: LM, tokens: torch.Tensor,
     is checkpointed by ``cfg.remat_policy``. ``impl`` supplies
     ``flash_attention``: ``kernels.autograd`` (the default: the kernel
     forward, the plain version's gradient) or ``kernels.ref`` (the plain
-    version under autograd, on either device)."""
-    check_supported(cfg)
+    version under autograd, on either device). Raises
+    NotImplementedError on a MoE or chunked config (``check_trainable``)."""
+    check_trainable(cfg)
     B, T = tokens.shape
     x = _embed(cfg, params, tokens)
     pos = torch.arange(T, device=x.device).expand(B, T)
-    for lw in params.layers:
-        x = _layer(cfg, lw, x, pos, impl, remat)
+    for i, lw in enumerate(params.layers):
+        x = _layer(cfg, lw, i, x, pos, impl, remat)
     return _logits(cfg, params, x)
 
 
@@ -435,7 +626,7 @@ def prefill(cfg: LMConfig, params: LM, tokens: torch.Tensor, cache: Cache,
     x = _embed(cfg, params, tokens)
     pos = torch.arange(T, device=x.device).expand(B, T)
     for i, lw in enumerate(params.layers):
-        x, k, v = _block(cfg, lw, x, pos, impl)
+        x, k, v = _block(cfg, lw, i, x, pos, impl)
         cache["k"][i, :, :T] = k
         cache["v"][i, :, :T] = v
     cache["k"][:, :, T:] = 0
@@ -458,7 +649,7 @@ def decode_step(cfg: LMConfig, params: LM, cache: Cache, token: torch.Tensor,
     pos_k = torch.arange(S, device=x.device)
     ks, vs = [], []
     for i, lw in enumerate(params.layers):
-        x, k, v = _block_decode(cfg, lw, x, pos_q, pos_k, cache["k"][i],
+        x, k, v = _block_decode(cfg, lw, i, x, pos_q, pos_k, cache["k"][i],
                                 cache["v"][i])
         ks.append(k[:, 0])
         vs.append(v[:, 0])

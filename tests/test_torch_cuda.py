@@ -16,7 +16,8 @@ products, amplified by exp); in bf16
 both outputs are float32 values rounded once, so they may differ by one
 bf16 step, 2^-7 of the value, plus 1e-5: the tensor-core kernel rounds p
 to bf16 as p_hi + p_lo, about 2^-17 of p (``test_torch_kernels.py``).
-The reduced LM's prefill with the kernel agrees with the plain attention
+The reduced LMs' prefill with the kernel (qwen3, and llama4 scout with its
+chunked layers split into two launches) agrees with the plain attention
 within 1e-4 (float32) and 2^-6 (bf16) of its largest logit, as
 ``test_torch_lm.py`` states; its training loss and gradients with the
 kernel forward agree with the plain attention's within
@@ -460,6 +461,7 @@ def _check_flash(q, k, v, causal):
     (2, 2, 2, 17, 17, True),        # T shorter than one tile
     (1, 4, 4, 63, 63, True),
     (1, 2, 1, 256, 256, True),      # whole tiles
+    (2, 40, 8, 300, 300, True),     # llama4's GQA group of 5
 ])
 def test_cuda_flash_attention_matches_plain(sm90, dtype, D, B, H, Hkv, Tq,
                                             Tk, causal):
@@ -518,6 +520,36 @@ def test_cuda_reduced_prefill_kernel_matches_plain(sm90, dtype):
     want, _ = TT.prefill(cfg, params, toks, TT.init_cache(cfg, 2, 104, sm90),
                          impl=ref)
     tol = 1e-4 if dtype == torch.float32 else 2.0 ** -6
+    assert float((got.float() - want.float()).abs().max()) <= \
+        tol * float(want.float().abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_reduced_llama4_prefill_kernel_matches_plain(sm90, dtype):
+    """Scout's reduced config (chunks of 8, layers 1 and 3 global without
+    RoPE, head_dim 8, a GQA group of 4, four experts a layer): a prompt of
+    100 tokens launches the kernel twice a chunked layer (the 12 whole
+    chunks, then the tail of 4) and once a global one, and agrees with the
+    plain attention within ``test_torch_lm.py``'s tolerances."""
+    cfg = configs.get("llama4-scout-17b-a16e").REDUCED
+    cfg = dataclasses.replace(cfg, dtype=dtype)
+    params = TT.init_params(cfg, torch.Generator(device=sm90).manual_seed(0),
+                            device=sm90)
+    g = torch.Generator(device=sm90).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 100), generator=g, device=sm90)
+    ops.reset_launches()
+    got, _ = TT.prefill(cfg, params, toks, TT.init_cache(cfg, 2, 104, sm90))
+    torch.cuda.synchronize()
+    chunked = sum(1 for i in range(cfg.n_layers)
+                  if (i + 1) % cfg.global_every)
+    assert dict(ops.LAUNCHES)[_flash_kernel(dtype, cfg.hd)] == \
+        2 * chunked + (cfg.n_layers - chunked) == 6
+    assert sum(ops.LAUNCHES.values()) == 6
+    want, _ = TT.prefill(cfg, params, toks, TT.init_cache(cfg, 2, 104, sm90),
+                         impl=ref)
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -6
+    assert bool(torch.isfinite(got).all())
     assert float((got.float() - want.float()).abs().max()) <= \
         tol * float(want.float().abs().max())
 

@@ -152,12 +152,15 @@ def test_port_imports_neither_jax_nor_repro():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 68, names\n"
+        "assert len(names) >= 70, names\n"
         "assert {'repro_torch.core.quantized', 'repro_torch.stream.delta',"
         " 'repro_torch.stream.index', 'repro_torch.train.optimizer',"
         " 'repro_torch.train.steps', 'repro_torch.kernels.autograd',"
         " 'repro_torch.data.pipelines',"
-        " 'repro_torch.checkpoint.checkpoint'} <= set(names), names\n"
+        " 'repro_torch.checkpoint.checkpoint',"
+        " 'repro_torch.configs.llama4_scout_17b_a16e',"
+        " 'repro_torch.configs.llama4_maverick_400b_a17b'} <= set(names),"
+        " names\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(src))
     out = subprocess.run([sys.executable, "-c", code], env=env,
