@@ -48,7 +48,8 @@ result line:
    the card's popcount rate (SMs x 16 a clock x nvidia-smi's
    clocks.max.sm), not at the FP32 rate.
 4. Slice A, the main path at MSTuring's published width: msturing_subset
-   (d = 100, 30 Bernoulli(1/2) subset attributes, N = 1,000,000),
+   (d = 100, 30 Bernoulli(1/2) subset attributes, N = 600,000, cut
+   from 1,000,000 to keep the script's time),
    ``JAGIndex.build`` on the card (degree 128, ls_build 96, cand_pool
    192, batch 8192: at degree 96 or less the graph route's recall at
    ls = 64 stays under the bar at this N, PERF.md); every row's degree
@@ -68,21 +69,21 @@ result line:
    group's shapes, timed cold (the ``int8`` record of its kernel report);
    ``quantize_int8`` on 65,536 rows equal on the card and the CPU, bit for
    bit. Streaming: ``StreamingJAGIndex`` over the index (compact_frac 0.25,
-   so nothing compacts by itself) takes 20,000 rows (2% of N) in 4 batches
-   of 5,000, drawn with their own generator (seed 1): slice A rows at
+   so nothing compacts by itself) takes 12,000 rows (2% of N) in 4 batches
+   of 3,000, drawn with their own generator (seed 1): slice A rows at
    random ids plus Gaussian noise of 0.1x the per-dim std, and 30
    Bernoulli(1/2) subset bits. ``search_auto(layout="fused")`` over base +
-   delta: prefilter ids equal ``exact_filtered_knn`` over the 1,020,000
+   delta: prefilter ids equal ``exact_filtered_knn`` over the 612,000
    concatenated rows, graph recall at least 0.80 against it, every
    realized route ends in ``+delta``, the delta scan alone launches
    ``gather_dist_tile`` and ``bitset_dist``, and ``gather_dist_tile`` on
    the delta's padded last block (tile 4096) is bit-exact with its plain
-   version. ``compact()`` (timed): 1,020,000 graph rows, every inserted row
+   version. ``compact()`` (timed): 612,000 graph rows, every inserted row
    at least R / 8 edges, the extended f32 layout equal to ``build_layout``
    over the concatenated rows bit for bit; then the same search with the
    delta empty (prefilter exact, graph recall at least 0.80, inserted rows
    among the graph route's ids) and ``search_int8``, whose int8 layout is
-   rebuilt over 1,020,000 rows. QPS per route of each served batch is
+   rebuilt over 612,000 rows. QPS per route of each served batch is
    printed beside slice A's; no gate.
 6. Slice E, the cost model and serving telemetry over slice A's index (no
    rebuild). Calibration on the card over ``cost.FULL_GRID`` (ns 8000 and
@@ -109,8 +110,8 @@ result line:
    printed: dead ends per selectivity band, shadow recall, span totals,
    the grid model's held-out error on the traces before and after
    ``maybe_recalibrate``, and QPS with and without telemetry. Then a
-   ``StreamingJAGIndex`` over the index with the model takes slice D's
-   20,000 rows in 4 inserts with auto-compaction: each insert's
+   ``StreamingJAGIndex`` over the index with the model takes 20,000
+   rows, drawn as slice D draws its own, in 4 inserts with auto-compaction: each insert's
    ``compaction_break_even`` must be finite; the streamed batch's
    prefilter ids equal the exact scan over base + delta and its graph
    recall is at least 0.80; the delta scan + merge ms is printed. The
@@ -119,13 +120,14 @@ result line:
    prefilter's shadow recall is 1.0; the card's memory peak above the
    served state is printed, while serving and through the flush.
 7. Slice F, the paper's baselines and sharded serving, on data of their
-   own (budget 240 s; ``--f-n``/``--f-sift-n`` cut it): msturing_subset
-   (N = 200,000, d = 100, 30 bits, 1024 queries with 0 to 12 required
-   bits, seed 5) and sift_like (N = 120,000, d = 128, 12 labels, 1024
+   own (budget 120 s; ``--f-n``/``--f-sift-n`` set it): msturing_subset
+   (N = 100,000, d = 100, 30 bits, 1024 queries with 0 to 12 required
+   bits, seed 5) and sift_like (N = 60,000, d = 128, 12 labels, 1024
    queries, seed 6), built at degree 64, ls_build 96, cand_pool 192, batch
-   8192: the JAG union index, ``build_unfiltered`` (RWalks' diffusion over
-   it: m 5, depth 3, h 0.1), ``ShardedJAGIndex`` of 4 shards of 50,000
-   rows on ``[cuda:0] * 4`` and ``StitchedLabelIndex`` over sift_like;
+   4096 (about six batches a shard): the JAG union index,
+   ``build_unfiltered`` (RWalks' diffusion over it: m 5, depth 3, h 0.1),
+   ``ShardedJAGIndex`` of 4 shards of 25,000 rows on ``[cuda:0] * 4`` and
+   ``StitchedLabelIndex`` over sift_like;
    each build's seconds printed. F1: the batch at k = 10, ls = 64 through
    JAG ``search`` and ``search_auto``, ``post_filter_search``,
    ``binary_search``, ``acorn_search`` and ``rwalks_search`` over the
@@ -150,7 +152,7 @@ result line:
    routed bands' recall at least the union's less 0.02; every route call
    makes S packed gathers of B * (3k + 2) * 4 bytes; with
    ``Telemetry(shadow=0.05)`` the prefilter band's shadow recall is 1.0;
-   slice E's model routes at the per-shard n = 50,000 (route counts
+   slice E's model routes at the per-shard n = 25,000 (route counts
    printed); ``make_serve_step`` in f32 and int8_reg at query_chunk 128
    and 64, the two chunkings equal bit for bit, the f32 recall equal to
    the sharded graph route's.
@@ -193,8 +195,8 @@ result line:
    launches ``fused_expand`` once per expansion plus once for the seeds
    and makes no aten N-row data gather, the default layout and
    postfilter 3 N-row gathers per expansion, the prefilter's
-   ``gather_dist_tile`` and ``bitset_dist`` launches equal its 245
-   blocks, every route's host syncs within the audit's budget, no f64
+   ``gather_dist_tile`` and ``bitset_dist`` launches equal its
+   ceil(N / 4096) blocks (147), every route's host syncs within the audit's budget, no f64
    op. Printed per route: host syncs a call, launches and device kernels
    per expansion (or block), device busy share, longest idle gaps; then
    each kernel record's share of its bound.
@@ -216,7 +218,7 @@ result line:
    LM_BF16_NOISE x |plain bf16 - float32|. After step 2 the parameters
    and the AdamW state are saved with ``repro_torch.checkpoint`` under the
    temporary directory, restored onto the card and held against the live
-   state bit for bit. Steps 2 to 5 are timed one by one (host clock
+   state bit for bit. Steps 2 and 3 are timed one by one (host clock
    around synchronised steps); every loss, grad norm and parameter must
    be finite. Printed: seconds a step (the median), tokens/s, peak memory
    over the timed steps (not the checkpoint), and the step's share of its
@@ -253,6 +255,51 @@ result line:
    router, and each chunk's own keys; the bytes count the experts the
    call's tokens use).
 
+13. Slice J, llama4 training (budget 60 s): llama4-scout-17b-a16e at
+   its published width (slice I's), cut to 1 of 48 layers (chunked with
+   RoPE, MoE with 16 experts and the shared expert: 3.237B parameters;
+   float32 masters, gradients and AdamW m and v take 51.8 GB; four
+   layers would take 157 GB), remat "full", ``LM_SHAPES["train_4k"]``
+   cut to 2 x 4,096 tokens as accum=2 microbatches of 1 from
+   ``lm_batch``. At 4,096 <= attn_chunk 8,192 the chunk mask is the
+   causal mask: one kernel launch a forward. The first step's loss and
+   grad norm against the plain attention (the bf16 rule, beside the
+   float32 kernel's: exactly 4 launches of ``flash_attention_f32``);
+   step 1 launches ``flash_attention`` exactly 4 times (forward and remat
+   recompute, 2 microbatches) and nothing else; the remat recompute
+   routes every token as the forward did (eidx and keep), and one
+   microbatch's forward run twice routes alike. Then 4 timed steps.
+   Printed: seconds a step (median), tokens/s, share of the
+   ``lm_model_flops(kind="train")`` bound, peak memory, each
+   microbatch's ce and router_aux in step 1 and its tokens dropped by
+   capacity.
+14. Slice K, recsys (budget 30 s): fm, deepfm, wide-deep and din at their
+   published tables (2^25 rows x 10, x 10, x 32; din 2^24 x 18 with a
+   history of 100), random from ``--seed``. Each trains on
+   ``RECSYS_SHAPES["train_batch"]`` (65,536 rows of ``recsys_batch``, a
+   fresh batch a step; 1 warm-up and 4 timed AdamW steps), serves
+   ``forward`` at serve_p99 (512 rows, 200 calls: p50 and p99) and
+   serve_bulk (262,144 rows), and retrieves the top 100 of
+   retrieval_cand's 1,000,000 candidates (its table's first rows) for
+   one user's vector (din's attention output, else the mean of the
+   request's field embeddings). Gates: finite losses and parameters; the
+   first batch's logloss lower after training than before; the 512-row
+   forward within 1e-5 of the largest of the bulk forward's first 512
+   rows; the retrieval's ids equal a full argsort's where the scores are
+   distinct, its scores equal. Printed: step seconds, examples/s, peak
+   memory, p99 ms, bulk rows/s, retrieval ms.
+15. Slice L, the GCN (budget 90 s): gcn-cora's model at
+   ``GNN_SHAPES``' widths from ``--seed``. Full batch at ogb_products
+   (``random_graph`` of 2,449,029 nodes and 61,859,140 edges, d_feat 100,
+   47 classes; the first conv gathers 64.3M messages x 100 float32, 25.7
+   GB); molecule (128 graphs of 30 nodes, a label a graph) through
+   ``graph_loss_fn``; minibatch_lg (232,965 nodes, d_feat 602, 41
+   classes, its edges cut to a third: ``L_SAMPLED_EDGES``) through
+   ``NeighborSampler`` (1,024 seeds, fanout (15, 10), on the host) and
+   ``sampled_loss_fn``. 1 warm-up and 4 timed AdamW steps each; losses
+   and parameters finite. Printed: the host's generation, CSR and
+   sampling seconds, step seconds, peak memory and loss a step.
+
 The last lines are nvidia-smi's card line, one JSON object with a record
 per kernel, and ``{"ok": true, "device": {...}}``.
 """
@@ -277,16 +324,29 @@ RECALL_MIN = 0.80
 MIN_DEGREE_SHARE = 1 / 8       # a built row below R / 8 edges is a fault
 LM_ARCH = "qwen3-1.7b"
 LM_BATCH, LM_PROMPT, LM_STEPS = 4, 4096, 32   # prefill_32k cut to fit
-E_INSERTS, E_INSERT_ROWS = 4, 5000   # slice E's streamed rows, as slice D's
-F_N, F_SIFT_N = 200_000, 120_000     # slice F's msturing_subset, sift_like
+E_INSERTS, E_INSERT_ROWS = 4, 5000   # slice E's streamed rows (drawn as D's)
+F_N, F_SIFT_N = 100_000, 60_000      # slice F's msturing_subset, sift_like
 F_QUERIES, F_SHARDS = 1024, 4
-F_BUILD = dict(degree=64, ls_build=96, cand_pool=192, batch_size=8192)
+# one batch for every build of slice F, the union's and each shard's: 4096
+# keeps about six batches in each 25,000-row shard (ROADMAP F12: at a batch
+# near a third of the rows the graph route's recall collapses)
+F_BUILD = dict(degree=64, ls_build=96, cand_pool=192, batch_size=4096)
 F_MARGIN = 0.02                # sharded recall per routed band >= union's - it
 LM_F32_TOL = 1e-4              # float32 prefill, of the largest logit
 LM_BF16_NOISE = 2              # bf16 checks: widths of bf16's own error
-H_BATCH, H_ACCUM, H_STEPS = 4, 2, 4  # slice H: train_4k cut, timed steps
+H_BATCH, H_ACCUM, H_STEPS = 4, 2, 2  # slice H: train_4k cut, timed steps
 I_ARCH = "llama4-scout-17b-a16e"
 I_LAYERS, I_BATCH, I_PROMPT, I_STEPS = 4, 2, 12288, 16   # slice I's cuts
+J_LAYERS, J_BATCH, J_ACCUM, J_STEPS = 1, 2, 2, 4   # slice J's cuts
+K_ARCHS = ("fm", "deepfm", "wide-deep", "din")
+K_STEPS, K_TOPK, K_P99_CALLS = 4, 100, 200
+K_SERVE_TOL = 1e-5             # 512 rows vs the bulk batch, of the largest
+L_STEPS = 4
+# minibatch_lg's edges, cut from the published 114,615,892 to a third:
+# generating them and the sampler's CSR took 60 s on the card's host, over
+# the 30 s this slice allows them; at 1/3 each of the 232,965 nodes keeps
+# about 164 in-edges, more than the fanout of 15 takes
+L_SAMPLED_EDGES = 38_205_297
 
 
 def log(msg: str) -> None:
@@ -697,7 +757,7 @@ def run_slice_d(torch, np, idx, ds, q_all, gt, f32_recall, f32_qps, kernels,
 
     # -- streaming: inserts, merged search, compaction ---------------------
     n_batches = 4
-    M = N // 50 // n_batches * n_batches    # 2% of N: 20,000 at 1M rows
+    M = N // 50 // n_batches * n_batches    # 2% of N: 12,000 at 600k rows
     rng = np.random.default_rng(1)
     std = idx.xb.std(0).cpu().numpy()
     src = rng.integers(0, N, M)
@@ -1071,7 +1131,7 @@ def run_slice_e(torch, np, idx, ds, q_all, gt, f32_qps, K, LS,
                  for b, v in sorted(bands.items())}
     log(f"[slice E] telemetry: {len(traces)} traces over 2 calls; "
         f"introspection {introspection_summary(traces)}")
-    log(f"[slice E] dead ends per selectivity band (graph route, 1M rows): "
+    log(f"[slice E] dead ends per selectivity band (graph route, {N} rows): "
         f"{band_rows}")
     log(f"[slice E] shadow audits {n_audit} (launches of the oracle's scan "
         f"{shadow_launches}): {table}")
@@ -2257,9 +2317,530 @@ def run_slice_i(torch, np, dev, seed: int, kernels: dict) -> dict:
     return out
 
 
+def run_slice_j(torch, np, dev, seed: int, kernels: dict) -> dict:
+    """Slice J: llama4 training on the card. llama4-scout-17b-a16e at its
+    published width, cut to J_LAYERS layer (chunked with RoPE, MoE with
+    the shared expert), float32 masters and AdamW state from ``seed``,
+    remat "full"; LM_SHAPES["train_4k"] cut to J_BATCH sequences as
+    J_ACCUM microbatches. The first step's loss and grad norm against the
+    plain attention's (the bf16 rule), the kernel's launches, the routing
+    of the remat recompute against the forward's, then the timed steps.
+    Records the launches under ``llama4_train_launches``. Every gate
+    raises; returns the phase's report."""
+    from repro_torch import configs
+    from repro_torch.configs.shapes import LM_SHAPES
+    from repro_torch.data.pipelines import lm_batch
+    from repro_torch.kernels import autograd, ops, ref
+    from repro_torch.launch import roofline as RL
+    from repro_torch.models import transformer as TT
+    from repro_torch.train import (OptConfig, accumulate_grads, global_norm,
+                                   init_state, make_train_step)
+
+    t_phase = time.perf_counter()
+    full = configs.get(I_ARCH).CONFIG
+    lm = dataclasses.replace(full, n_layers=J_LAYERS, remat_policy="full")
+    lm32 = dataclasses.replace(lm, dtype=torch.float32)
+    shp = LM_SHAPES["train_4k"]
+    seq, n_tok, C = shp["seq"], J_BATCH * shp["seq"], lm.attn_chunk
+    n_moe = sum(lm._is_moe(i) for i in range(lm.n_layers))
+    # a forward's launches: 2 on a chunked layer when the tokens hold whole
+    # chunks and a tail; at seq <= attn_chunk the chunk mask is causal
+    per_fwd = sum(1 if TT._layer_flags(lm, i)[0] or seq <= C or seq % C == 0
+                  else 2 for i in range(lm.n_layers))
+    per_step = per_fwd * 2 * J_ACCUM            # forward + remat recompute
+    log(f"[slice J] {lm.name}: d_model {lm.d_model}, {lm.n_heads} heads, "
+        f"{lm.n_kv_heads} kv heads, head_dim {lm.hd}, d_ff {lm.d_ff}, vocab "
+        f"{lm.vocab}, {lm.n_experts} experts top-1 with the shared expert, "
+        f"capacity factor {lm.capacity_factor}, attn_chunk {C}, router aux "
+        f"weight {lm.router_aux_weight}; seed {seed}")
+    log(f"[slice J] depth cut: {full.n_layers} -> {lm.n_layers} layer "
+        f"(chunked, RoPE, MoE), {full.param_count()} -> {lm.param_count()} "
+        f"parameters: float32 masters, gradients and AdamW m and v take "
+        f"{16 * lm.param_count() / 1e9:.2f} GB; shape cut: "
+        f"LM_SHAPES['train_4k'] batch {shp['batch']} x {seq} -> {J_BATCH} x "
+        f"{seq} as accum={J_ACCUM} microbatches of {J_BATCH // J_ACCUM}, "
+        f"remat {lm.remat_policy}; {per_fwd} launch a forward"
+        + (f" ({seq} <= attn_chunk {C}: the chunk mask is the causal mask)"
+           if seq <= C else ""))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = TT.init_params(lm, gen, dev).requires_grad_(True)
+    state = init_state(params)
+    ocfg = OptConfig(warmup_steps=1, total_steps=10)
+    mb_metrics = []                # each microbatch's metrics (no sync)
+
+    def loss(cfg, impl):
+        def fn(p, b):
+            total, m = TT.loss_fn(cfg, p, b, impl=impl)
+            mb_metrics.append({k: v.detach() for k, v in m.items()})
+            return total, m
+        return fn
+
+    step = make_train_step(loss(lm, autograd), ocfg, J_ACCUM)
+
+    def batch(i):
+        return lm_batch(i, J_BATCH, seq, lm.vocab, seed)
+
+    def first_grads(cfg, impl):
+        """The first step's loss and grad norm, without the update."""
+        ops.reset_launches()
+        l, _, grads = accumulate_grads(loss(cfg, impl), params, batch(0),
+                                       J_ACCUM)
+        gn = float(global_norm(grads))
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        for p in params.parameters():
+            p.grad = None
+        return float(l), gn, launches
+
+    # the yardstick: float32 (the split-TF32 kernel's forward) and the plain
+    # bf16 attention under autograd, from the same weights
+    l32, g32, n32 = first_grads(lm32, autograd)
+    if n32["flash_attention_f32"] != per_step or n32["flash_attention"]:
+        raise AssertionError(f"float32 step launched {n32}, not {per_step} "
+                             "of flash_attention_f32")
+    lp, gp, np_ = first_grads(lm, ref)
+    if any(np_.values()):
+        raise AssertionError(f"the plain attention launched {np_}")
+    # the routing is a function of the layer's input: one microbatch's
+    # forward twice routes alike
+    toks0 = torch.as_tensor(batch(0)["tokens"][:1, :-1], device=dev)
+    with torch.no_grad(), RouteLog(TT) as twice:
+        for _ in range(2):
+            TT.forward(lm, params, toks0)
+    same_twice = all(torch.equal(a.eidx, b.eidx) and torch.equal(a.keep,
+                                                                 b.keep)
+                     for a, b in zip(twice.calls[:n_moe],
+                                     twice.calls[n_moe:]))
+    del twice, toks0
+    torch.cuda.empty_cache()
+    t_checks = time.perf_counter() - t_phase
+
+    # step 1 (warm-up): the kernel's forward, the plain version's backward;
+    # each microbatch routes in its forward and again in the remat
+    # recompute (last layer first)
+    mb_metrics.clear()
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with RouteLog(TT) as rlog:
+        params, state, m = step(params, state, batch(0))
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    log(f"[slice J] launches in step 1: {launches} (expected {per_fwd} a "
+        f"forward x (forward + remat recompute) x {J_ACCUM} microbatches = "
+        f"{per_step} of flash_attention)")
+    if launches["flash_attention"] != per_step or \
+            sum(launches.values()) != per_step:
+        raise AssertionError(f"step 1 launched {launches}")
+    per_mb = 2 * n_moe
+    if len(rlog.calls) != J_ACCUM * per_mb:
+        raise AssertionError(f"{len(rlog.calls)} routings in step 1, not "
+                             f"{J_ACCUM * per_mb}")
+    groups = [rlog.calls[j * per_mb:(j + 1) * per_mb]
+              for j in range(J_ACCUM)]
+    same_recompute = [all(torch.equal(a.eidx, b.eidx)
+                          and torch.equal(a.keep, b.keep)
+                          for a, b in zip(g[:n_moe], g[n_moe:][::-1]))
+                      for g in groups]
+    dropped = [[int((~r.keep).sum()) for r in g[:n_moe]] for g in groups]
+    used = [[int(r.eidx.unique().numel()) for r in g[:n_moe]] for g in groups]
+    cap = rlog.calls[0].cap
+    del rlog, groups
+    ce = [float(x["ce"]) for x in mb_metrics]
+    raux = [float(x["router_aux"]) for x in mb_metrics]
+    log(f"[slice J] step 1 per microbatch: ce {ce}, router_aux {raux}; "
+        f"tokens dropped by capacity (cap {cap} of {seq} tokens over "
+        f"{lm.n_experts} experts) a MoE layer: {dropped}; experts used: "
+        f"{used}")
+    log(f"[slice J] routing: the remat recompute equals the forward "
+        f"(eidx and keep) in each microbatch: {same_recompute}; one "
+        f"microbatch's forward twice: {same_twice}")
+    if not (all(same_recompute) and same_twice):
+        raise AssertionError("a recompute routed the tokens differently")
+    lk, gk = float(m["loss"]), float(m["grad_norm"])
+    gate = {}
+    for what, k, p_, f in (("loss", lk, lp, l32), ("grad_norm", gk, gp, g32)):
+        noise = abs(p_ - f)
+        gate[what] = dict(kernel=k, plain=p_, float32=f, diff=abs(k - p_),
+                          bf16_vs_f32=noise, limit=LM_BF16_NOISE * noise)
+        log(f"[slice J] step 1 {what}: kernel {k!r}, plain {p_!r}, float32 "
+            f"{f!r}; |kernel - plain| {abs(k - p_):.4g} (limit "
+            f"{LM_BF16_NOISE * noise:.4g}: {LM_BF16_NOISE} x bf16 vs "
+            f"float32, {noise:.4g})")
+        if not (math.isfinite(k) and abs(k - p_) <= LM_BF16_NOISE * noise):
+            raise AssertionError(f"step 1 {what}: the kernel's {k} against "
+                                 f"the plain {p_} (limit "
+                                 f"{LM_BF16_NOISE * noise})")
+
+    # steps 2..J_STEPS + 1, timed one by one
+    metrics, step_s, peak = [m], [], 0
+    for i in range(1, J_STEPS + 1):
+        mb_metrics.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch(i))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        metrics.append(m)
+    losses = [float(x["loss"]) for x in metrics]
+    norms = [float(x["grad_norm"]) for x in metrics]
+    finite = all(bool(torch.isfinite(p).all()) for p in params.parameters())
+    if not (finite and all(map(math.isfinite, losses + norms))):
+        raise AssertionError(f"slice J: not finite (params {finite}, losses "
+                             f"{losses}, grad norms {norms})")
+    med = float(np.median(step_s))
+    flops = RL.lm_model_flops(lm, J_BATCH, seq, "train")
+    bound = flops / RL.HW["bf16_flops"]
+    log(f"[slice J] losses {losses}, grad norms {norms}")
+    log(f"[slice J] step {med:.4f} s (median of {J_STEPS}: "
+        f"{', '.join(f'{t:.4f}' for t in step_s)}; step 1 {t_first:.4f} s), "
+        f"{n_tok / med:.1f} tokens/s, peak memory {peak / 2 ** 30:.2f} GiB "
+        f"({peak / 1e9:.2f} GB); bound {bound:.4f} s ({flops:.4g} flops at "
+        f"{RL.HW['bf16_flops']:.3g} flop/s: the top-1 expert, the shared "
+        f"expert and the router, remat recompute not counted): "
+        f"{100 * bound / med:.2f}% of it")
+    kernels["flash_attention"]["llama4_train_launches"] = \
+        launches["flash_attention"]
+    kernels["flash_attention_f32"]["llama4_train_launches"] = \
+        n32["flash_attention_f32"]
+    del params, state, metrics, m
+    torch.cuda.empty_cache()
+    out = dict(arch=lm.name, layers=lm.n_layers, params=lm.param_count(),
+               batch=J_BATCH, seq=seq, accum=J_ACCUM, remat=lm.remat_policy,
+               step_s=step_s, step_median_s=med, step1_s=t_first,
+               tokens_per_s=n_tok / med, peak_bytes=peak, bound_s=bound,
+               bound_share=bound / med, losses=losses, grad_norms=norms,
+               launches=launches, f32_launches=n32, first_step=gate,
+               ce=ce, router_aux=raux, cap=cap, dropped=dropped,
+               experts_used=used, recompute_routes_alike=same_recompute,
+               forward_twice_alike=same_twice, checks_s=t_checks)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[slice J] {out['phase_s']:.1f} s (first-step checks "
+        f"{t_checks:.1f} s)")
+    return out
+
+
+def _sync_s(torch, fn):
+    """Seconds of ``fn()`` on the host clock around synchronised work,
+    and its result."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, r
+
+
+def run_slice_k(torch, np, dev, seed: int) -> dict:
+    """Slice K: the recsys models on the card at their published tables.
+    Each of K_ARCHS trains on RECSYS_SHAPES["train_batch"] (1 warm-up and
+    K_STEPS timed AdamW steps, a fresh ``recsys_batch`` each), then serves
+    ``forward`` at serve_p99 and serve_bulk and retrieves the top K_TOPK
+    of retrieval_cand's candidates (the first rows of its table). Gates:
+    every loss and parameter finite; the logloss of the first batch falls
+    from before training to after it, and for the models that read dense
+    features or a history (all but fm) so does the logloss of a held-out
+    batch that no step trains on; the 512-row forward equals those
+    rows of the bulk forward within K_SERVE_TOL of the largest; the
+    retrieval's ids equal a full argsort's where the scores are distinct.
+    Every gate raises; returns the phase's report."""
+    from repro_torch import configs
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.data.pipelines import recsys_batch
+    from repro_torch.models import recsys as R
+    from repro_torch.train import (OptConfig, init_state, make_eval_step,
+                                   make_train_step)
+
+    t_phase = time.perf_counter()
+    n_train = RECSYS_SHAPES["train_batch"]["batch"]
+    n_p99 = RECSYS_SHAPES["serve_p99"]["batch"]
+    n_bulk = RECSYS_SHAPES["serve_bulk"]["batch"]
+    n_cand = RECSYS_SHAPES["retrieval_cand"]["n_candidates"]
+    out = {}
+    for arch in K_ARCHS:
+        t_arch = time.perf_counter()
+        cfg = configs.get(arch).CONFIG
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        params = R.init_params(cfg, gen, dev).requires_grad_(True)
+        state = init_state(params)
+        n_par = sum(p.numel() for p in params.parameters())
+
+        def data(step, rows):
+            b = recsys_batch(step, rows, cfg.n_sparse, cfg.vocabs(),
+                             cfg.n_dense, seed=seed, kind=cfg.kind,
+                             seq_len=cfg.seq_len)
+            return {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+
+        t0 = time.perf_counter()
+        batches = [data(i, n_train) for i in range(K_STEPS + 1)]
+        t_data = time.perf_counter() - t0
+        log(f"[slice K] {cfg.name}: {len(cfg.vocabs())} fields over "
+            f"{sum(cfg.vocabs())} table rows x {cfg.embed_dim}, mlp "
+            f"{cfg.mlp_dims if cfg.kind != 'fm' else ()}"
+            f"{f', attention mlp {cfg.attn_mlp_dims}, history {cfg.seq_len}' if cfg.kind == 'din' else ''}"
+            f", {cfg.n_dense} dense; {n_par} parameters ("
+            f"{16 * n_par / 1e9:.2f} GB with gradients and AdamW state); "
+            f"{K_STEPS + 1} batches of {n_train} made in {t_data:.2f} s")
+
+        def loss_fn(p, b):
+            return R.loss_fn(cfg, p, b)
+        step = make_train_step(loss_fn, OptConfig(warmup_steps=1,
+                                                  total_steps=10))
+        evaluate = make_eval_step(loss_fn)
+        # a batch that no step trains on can lose logloss only through what
+        # a fresh batch shares: dense[:, 0] (deepfm, wide_deep) and din's
+        # click rate of about 1 in 7 (target id mod 7 against the history's
+        # mean, which rounds to 3). fm reads no dense feature, clicks half
+        # the time, and its one other signal, field 0's id mod 5, sits in
+        # table rows that a fresh batch of 65,536 almost never repeats
+        heldout = data(K_STEPS + 1, n_train) if cfg.kind != "fm" else None
+        before = float(evaluate(params, batches[0])["loss"])
+        h_before = (float(evaluate(params, heldout)["loss"])
+                    if heldout is not None else None)
+        t_first, (params, state, m) = _sync_s(
+            torch, lambda: step(params, state, batches[0]))
+        metrics, step_s = [m], []
+        torch.cuda.reset_peak_memory_stats()
+        for b in batches[1:]:
+            t, (params, state, m) = _sync_s(
+                torch, lambda: step(params, state, b))
+            step_s.append(t)
+            metrics.append(m)
+        peak = torch.cuda.max_memory_allocated()
+        after = float(evaluate(params, batches[0])["loss"])
+        h_after = (float(evaluate(params, heldout)["loss"])
+                   if heldout is not None else None)
+        losses = [float(x["loss"]) for x in metrics]
+        finite = all(bool(torch.isfinite(p).all())
+                     for p in params.parameters())
+        med = float(np.median(step_s))
+        log(f"[slice K] {cfg.name} train: step {med:.4f} s (median of "
+            f"{K_STEPS}: {', '.join(f'{t:.4f}' for t in step_s)}; step 1 "
+            f"{t_first:.4f} s), {n_train / med:.1f} examples/s, peak memory "
+            f"{peak / 2 ** 30:.2f} GiB ({peak / 1e9:.2f} GB); logloss a "
+            f"step {losses}; batch 0's logloss {before!r} before training, "
+            f"{after!r} after; the held-out batch's "
+            f"{'(fm: not gated)' if heldout is None else f'{h_before!r} before, {h_after!r} after'}")
+        if not (finite and all(map(math.isfinite, losses))):
+            raise AssertionError(f"{cfg.name}: not finite (params {finite}, "
+                                 f"losses {losses})")
+        if not after < before:
+            raise AssertionError(f"{cfg.name}: batch 0's logloss did not "
+                                 f"fall ({before} -> {after})")
+        if heldout is not None and not h_after < h_before:
+            raise AssertionError(f"{cfg.name}: the held-out batch's logloss "
+                                 f"did not fall ({h_before} -> {h_after})")
+        del state, batches, metrics, m, heldout
+        params.requires_grad_(False)
+        torch.cuda.empty_cache()
+
+        # serving: the p99 batch's latency over K_P99_CALLS calls, then the
+        # bulk batch's rows/s; the small batch is the bulk batch's head
+        served = data(10_000, n_bulk)
+        small = {k: v[:n_p99] for k, v in served.items()}
+        with torch.no_grad():
+            lat = [_sync_s(torch, lambda: R.forward(cfg, params, small))[0]
+                   for _ in range(K_P99_CALLS)]
+            y_small = R.forward(cfg, params, small)
+            _sync_s(torch, lambda: R.forward(cfg, params, served))
+            torch.cuda.reset_peak_memory_stats()
+            bulk_s, y_bulk = _sync_s(
+                torch, lambda: R.forward(cfg, params, served))
+            serve_peak = torch.cuda.max_memory_allocated()
+            head = y_bulk[:n_p99]
+            serve_err = float((y_small - head).abs().max())
+            serve_lim = K_SERVE_TOL * float(head.abs().max())
+            # retrieval: one user's vector against the first n_cand rows
+            if cfg.kind == "din":
+                user = R.din_attention(params.table[small["hist_ids"][:1]
+                                                    .long()],
+                                       params.table[small["target_id"][:1]
+                                                    .long()],
+                                       params.attn_mlp,
+                                       small["hist_mask"][:1])
+            else:
+                user = R.lookup_fields(params.table, small["sparse_ids"][:1],
+                                       R.field_offsets(cfg, dev)).mean(dim=1)
+            cand = params.table[:n_cand]
+            ret_ms = cuda_ms(torch, lambda: R.retrieval_topk(user, cand,
+                                                             K_TOPK), 20)
+            scores, ids = R.retrieval_topk(user, cand, K_TOPK)
+            full = R.retrieval_scores(user, cand)[0]
+            order = torch.argsort(full, descending=True, stable=True)[:K_TOPK]
+            vals, counts = torch.unique(full, return_counts=True)
+            distinct = torch.isin(scores[0], vals[counts == 1])
+            ids_ok = torch.equal(ids[0][distinct], order[distinct])
+            scores_ok = torch.equal(scores[0], full[order])
+        lat_ms = np.asarray(lat[10:]) * 1e3      # the first 10 warm up
+        p99 = float(np.percentile(lat_ms, 99))
+        log(f"[slice K] {cfg.name} serve: {n_p99} rows p50 "
+            f"{float(np.median(lat_ms)):.4f} ms, p99 {p99:.4f} ms "
+            f"({K_P99_CALLS - 10} calls); {n_bulk} rows in "
+            f"{bulk_s * 1e3:.3f} ms: {n_bulk / bulk_s:.1f} rows/s, peak "
+            f"{serve_peak / 2 ** 30:.2f} GiB; head vs bulk max |d| "
+            f"{serve_err:.3g} (limit {serve_lim:.3g}); retrieval top "
+            f"{K_TOPK} of {cand.shape[0]} x {cand.shape[1]} in "
+            f"{ret_ms:.4f} ms, {int(distinct.sum())} distinct scores, ids "
+            f"equal to a full argsort's there: {ids_ok}")
+        if serve_err > serve_lim:
+            raise AssertionError(f"{cfg.name}: the {n_p99}-row forward "
+                                 f"differs from the bulk's by {serve_err}")
+        if not (ids_ok and scores_ok):
+            raise AssertionError(f"{cfg.name}: retrieval differs from a full "
+                                 f"argsort (ids {ids_ok}, scores "
+                                 f"{scores_ok})")
+        out[cfg.name] = dict(
+            params=n_par, step_s=step_s, step_median_s=med, step1_s=t_first,
+            examples_per_s=n_train / med, peak_bytes=peak, losses=losses,
+            batch0_logloss=[before, after],
+            heldout_logloss=[h_before, h_after], p99_ms=p99,
+            p50_ms=float(np.median(lat_ms)), bulk_s=bulk_s,
+            bulk_rows_per_s=n_bulk / bulk_s, serve_peak_bytes=serve_peak,
+            serve_err=serve_err, retrieval_ms=ret_ms,
+            retrieval_distinct=int(distinct.sum()), data_s=t_data,
+            arch_s=time.perf_counter() - t_arch)
+        del params, served, small, y_small, y_bulk, head, user, cand, full
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[slice K] {out['phase_s']:.1f} s")
+    return out
+
+
+def run_slice_l(torch, np, dev, seed: int) -> dict:
+    """Slice L: gcn-cora's model on the card at GNN_SHAPES' sizes, data
+    from ``seed``: full-batch training at ogb_products (``random_graph``
+    of 2,449,029 nodes and 61,859,140 edges), batched small graphs at
+    molecule through ``graph_loss_fn`` (a label a graph), and sampled
+    training at minibatch_lg (reddit's 232,965 nodes, its edges cut to
+    L_SAMPLED_EDGES, 1,024 seeds a step with fanout (15, 10), through
+    ``sampled_loss_fn``; the sampler runs on the host before the timed
+    steps). 1 warm-up and L_STEPS timed AdamW steps each. Gates: every
+    loss and parameter finite. Returns the phase's report."""
+    from repro_torch import configs
+    from repro_torch.configs.shapes import GNN_SHAPES
+    from repro_torch.data import graph_sampler as GS
+    from repro_torch.models import gnn as N
+    from repro_torch.train import OptConfig, init_state, make_train_step
+
+    t_phase = time.perf_counter()
+    gcn = configs.get("gcn-cora")
+
+    def on_dev(b):
+        return {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+
+    def train(name, shape, loss_fn, batches) -> dict:
+        cfg = gcn.make_config(shape)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        params = N.init_params(cfg, gen, dev).requires_grad_(True)
+        state = init_state(params)
+        step = make_train_step(lambda p, b: loss_fn(cfg, p, b),
+                               OptConfig(warmup_steps=1, total_steps=10))
+        torch.cuda.reset_peak_memory_stats()
+        t_first, (params, state, m) = _sync_s(
+            torch, lambda: step(params, state, batches[0]))
+        metrics, step_s = [m], []
+        for b in batches[1:]:
+            t, (params, state, m) = _sync_s(
+                torch, lambda: step(params, state, b))
+            step_s.append(t)
+            metrics.append(m)
+        peak = torch.cuda.max_memory_allocated()
+        losses = [float(x["loss"]) for x in metrics]
+        finite = all(bool(torch.isfinite(p).all())
+                     for p in params.parameters())
+        med = float(np.median(step_s))
+        log(f"[slice L] {name} ({shape}, d_feat {cfg.d_feat}, d_hidden "
+            f"{cfg.d_hidden}, {cfg.n_classes} classes, norm {cfg.norm}): "
+            f"step {med:.4f} s (median of {L_STEPS}: "
+            f"{', '.join(f'{t:.4f}' for t in step_s)}; step 1 "
+            f"{t_first:.4f} s), peak memory {peak / 2 ** 30:.2f} GiB "
+            f"({peak / 1e9:.2f} GB); loss a step {losses}")
+        if not (finite and all(map(math.isfinite, losses))):
+            raise AssertionError(f"slice L {name}: not finite (params "
+                                 f"{finite}, losses {losses})")
+        return dict(step_s=step_s, step_median_s=med, step1_s=t_first,
+                    peak_bytes=peak, losses=losses)
+
+    out = {}
+    # full batch: the whole graph every step
+    shp = GNN_SHAPES["ogb_products"]
+    t0 = time.perf_counter()
+    g = GS.random_graph(shp["n_nodes"], shp["n_edges"], shp["d_feat"],
+                        shp["n_classes"], seed=seed)
+    t_gen = time.perf_counter() - t0
+    n_msg = shp["n_edges"] + shp["n_nodes"]
+    log(f"[slice L] ogb_products: random_graph of {g.n} nodes, "
+        f"{g.edges.shape[0]} edges, {shp['d_feat']} features in "
+        f"{t_gen:.1f} s on the host; the first conv gathers "
+        f"{n_msg} messages (self-loops added) x {shp['d_feat']} float32, "
+        f"{n_msg * shp['d_feat'] * 4 / 1e9:.2f} GB")
+    full = on_dev({"feats": g.feats, "edges": g.edges, "labels": g.labels})
+    del g
+    out["full"] = train("full batch", "ogb_products", N.loss_fn,
+                        [full] * (L_STEPS + 1))
+    out["full"]["gen_s"] = t_gen
+    del full
+    torch.cuda.empty_cache()
+
+    # batched small graphs: a fresh batch a step, one label a graph
+    shp = GNN_SHAPES["molecule"]
+    mols = []
+    for i in range(L_STEPS + 1):
+        b = GS.batched_molecules(shp["batch"], shp["n_nodes"], shp["n_edges"],
+                                 shp["d_feat"], shp["n_classes"],
+                                 seed=seed + i)
+        b["labels"] = b["labels"][::shp["n_nodes"]]
+        mols.append(on_dev(b))
+    out["molecule"] = train("batched graphs", "molecule", N.graph_loss_fn,
+                            mols)
+    del mols
+
+    # sampled: reddit's graph, the CSR and the fanout sampler on the host
+    shp = GNN_SHAPES["minibatch_lg"]
+    n_edges = min(shp["n_edges"], L_SAMPLED_EDGES)
+    log(f"[slice L] minibatch_lg cut: {shp['n_edges']} -> {n_edges} edges "
+        f"(the host's time to generate them and build the CSR)")
+    t0 = time.perf_counter()
+    g = GS.random_graph(shp["n_nodes"], n_edges, shp["d_feat"],
+                        shp["n_classes"], seed=seed)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sampler = GS.NeighborSampler(g, shp["fanout"], seed=seed)
+    t_csr = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    sampled = [sampler.sample(rng.choice(g.n, shp["batch_nodes"],
+                                         replace=False))
+               for _ in range(L_STEPS + 1)]
+    t_sample = (time.perf_counter() - t0) / len(sampled)
+    real = [int(b["n_real_nodes"]) for b in sampled]
+    log(f"[slice L] minibatch_lg: random_graph of {g.n} nodes, "
+        f"{g.edges.shape[0]} edges, {shp['d_feat']} features in "
+        f"{t_gen:.1f} s and its CSR in {t_csr:.1f} s on the host "
+        f"({t_gen + t_csr:.1f} s together); {shp['batch_nodes']} seeds with "
+        f"fanout {shp['fanout']}: {t_sample:.3f} s a sample on the host, "
+        f"{real} real of {sampled[0]['feats'].shape[0]} padded nodes, "
+        f"{sampled[0]['edges'].shape[0]} padded edges")
+    del g, sampler
+    out["sampled"] = train("sampled", "minibatch_lg", N.sampled_loss_fn,
+                           [on_dev(b) for b in sampled])
+    out["sampled"].update(gen_s=t_gen, csr_s=t_csr, sample_s=t_sample,
+                          real_nodes=real)
+    del sampled
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[slice L] {out['phase_s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--n", type=int, default=1_000_000,
+    ap.add_argument("--n", type=int, default=600_000,
                     help="slice A database rows")
     ap.add_argument("--batch-size", type=int, default=8192,
                     help="JAGConfig.batch_size of slice A's build")
@@ -2972,6 +3553,16 @@ def main(argv=None) -> int:
     # -- 12. slice I: llama4 serving -----------------------------------------
     torch.cuda.empty_cache()
     report["slice_i"] = run_slice_i(torch, np, dev, args.seed, kernels)
+
+    # -- 13. slice J: llama4 training ----------------------------------------
+    torch.cuda.empty_cache()
+    report["slice_j"] = run_slice_j(torch, np, dev, args.seed, kernels)
+
+    # -- 14. slice K: recsys training, serving and retrieval -----------------
+    report["slice_k"] = run_slice_k(torch, np, dev, args.seed)
+
+    # -- 15. slice L: GCN training (full batch, batched graphs, sampled) -----
+    report["slice_l"] = run_slice_l(torch, np, dev, args.seed)
 
     report["kernels"] = [kernels[n] for n in _build.SOURCES]
     report["total_s"] = time.perf_counter() - t_start

@@ -1,2 +1,2 @@
-"""Synthetic filtered-ANN datasets and the LM token stream (counterpart of
-``repro.data``)."""
+"""Synthetic filtered-ANN datasets, the LM token stream, recsys click logs,
+and graphs with their fanout sampler (counterpart of ``repro.data``)."""

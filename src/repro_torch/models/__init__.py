@@ -1,2 +1,3 @@
-"""Models on PyTorch (counterparts of ``repro.models``): the dense decoder
-LM in ``transformer.py``, built from ``layers.py``."""
+"""Models on PyTorch (counterparts of ``repro.models``): the decoder LM
+(dense and MoE) in ``transformer.py``, the recsys models in
+``recsys.py`` and the GCN in ``gnn.py``, built from ``layers.py``."""

@@ -1,4 +1,6 @@
-"""Shared layers of the LM (counterpart of ``repro.models.layers``).
+"""Shared layers (counterpart of ``repro.models.layers``): the LM's norms,
+rope, activations and loss, and the recsys models' MLP towers
+(``Dense``, ``mlp_stack``, ``mlp_apply``).
 
 The reference runs under XLA, which rounds every op of a bf16 expression
 to bf16 and rounds a Python scalar to the array's dtype before using it.
@@ -10,9 +12,10 @@ bf16 they give the reference's values bit for bit.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Mapping, Optional, Sequence
 
 import torch
+from torch import nn
 
 
 def scalar(c: float, dtype: torch.dtype) -> float:
@@ -73,3 +76,78 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         mask = mask.float()
         return torch.sum(loss * mask) / torch.clamp_min(torch.sum(mask), 1.0)
     return torch.mean(loss)
+
+
+def dense(generator: torch.Generator, in_dim: int, out_dim: int,
+          dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
+    """A dense kernel [in_dim, out_dim] drawn as the reference draws it:
+    N(0, 1) / sqrt(in_dim) (LeCun normal). ``generator`` lives on
+    ``device`` (the numbers differ from jax.random's)."""
+    return torch.randn((in_dim, out_dim), generator=generator, dtype=dtype,
+                       device=device) / math.sqrt(in_dim)
+
+
+class Dense(nn.Module):
+    """One layer of an MLP tower: ``w`` [in, out] and ``b`` [out] (the
+    reference's ``{"w", "b"}``), both empty until drawn or copied."""
+
+    def __init__(self, in_dim: int, out_dim: int,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.w = nn.Parameter(torch.empty(in_dim, out_dim, dtype=dtype,
+                                          device=device))
+        self.b = nn.Parameter(torch.zeros(out_dim, dtype=dtype,
+                                          device=device))
+
+
+def mlp_stack(dims: Sequence[int], generator: Optional[torch.Generator],
+              dtype: torch.dtype = torch.float32,
+              device=None) -> nn.ModuleList:
+    """A plain MLP tower over ``dims`` (``len(dims) - 1`` ``Dense``
+    layers): kernels from ``dense``, biases 0. Without a generator the
+    kernels stay empty (for ``copy_from_tree`` or the meta device)."""
+    tower = nn.ModuleList(Dense(dims[i], dims[i + 1], dtype, device)
+                          for i in range(len(dims) - 1))
+    if generator is not None:
+        with torch.no_grad():
+            for layer in tower:
+                layer.w.copy_(dense(generator, *layer.w.shape, dtype=dtype,
+                                    device=device))
+    return tower
+
+
+def mlp_apply(tower: nn.ModuleList, x: torch.Tensor,
+              final_act: bool = False) -> torch.Tensor:
+    """x @ w + b through the tower, relu between layers (and after the
+    last with ``final_act``)."""
+    for i, layer in enumerate(tower):
+        x = x @ layer.w + layer.b
+        if i < len(tower) - 1 or final_act:
+            x = torch.relu(x)
+    return x
+
+
+def copy_from_tree(module: nn.Module, tree) -> nn.Module:
+    """Copy a reference parameter tree (nested dicts and lists of numpy
+    arrays) into ``module``'s parameters by name: ``mlp.0.w`` is
+    ``tree["mlp"][0]["w"]``. Shapes must agree; values keep their bits,
+    cast to each parameter's dtype. Returns the module, frozen
+    (``requires_grad`` off)."""
+    import numpy as np
+    module.requires_grad_(False)
+    for name, p in module.named_parameters():
+        a = tree
+        for key in name.split("."):
+            a = a[int(key)] if isinstance(a, (list, tuple)) else a[key]
+        a = np.asarray(a)
+        if tuple(a.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: shape {a.shape}, expected "
+                             f"{tuple(p.shape)}")
+        p.copy_(torch.from_numpy(np.array(a)).to(p.dtype))
+    return module
+
+
+def batch_to(device: torch.device, batch: Mapping) -> Dict[str, torch.Tensor]:
+    """A batch of numpy arrays or tensors, each moved to ``device`` (the
+    parameters' device)."""
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}

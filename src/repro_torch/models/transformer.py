@@ -5,9 +5,9 @@
 
 Covers the dense configs (qwen3, minicpm, gemma): GQA with a separate
 head_dim, qk-norm, SwiGLU or GeGLU, tied embeddings, RoPE, embedding and
-residual scaling, (1 + w) RMSNorm; and for serving the llama4 configs:
-top-1 MoE with capacity and the shared expert on every ``moe_every``-th
-layer, and iRoPE, where three of every ``global_every`` layers attend
+residual scaling, (1 + w) RMSNorm; and the llama4 configs: top-1 MoE
+with capacity and the shared expert on every ``moe_every``-th layer, and
+iRoPE, where three of every ``global_every`` layers attend
 within chunks of ``attn_chunk`` positions with RoPE and the last is
 global without it (NoPE). Parameters are an ``LM`` module whose names are
 the reference's keys (``embed``, ``final_norm`` and per layer ``ln1``,
@@ -57,10 +57,17 @@ also keeps the outputs of its 2-D weight products (``aten.mm``,
 ``aten.addmm``) and recomputes the rest, attention's batched products
 included (the reference's ``dots_with_no_batch_dims_saveable``).
 
+``forward`` returns the logits and the router's aux loss summed over the
+MoE layers (float32; 0 on a dense config), and ``loss_fn`` adds
+``router_aux_weight`` times it to the cross-entropy, as the reference
+does. The backward runs through the capacity dispatch as autograd writes
+it: the scatter into the expert batch and the gather back are index
+copies, so a dropped token (written to the extra row that is cut off,
+and given a zero output row) gets exactly 0 from the routed experts; the
+shared expert, the residual and the router's aux loss still reach it.
+
 What this port cannot run raises ``NotImplementedError``: the bf16 score
-knobs everywhere, and ``forward``/``loss_fn`` on a MoE or chunked config
-(training them needs the router aux loss in the loss and a tested
-backward through the dispatch). ``LMConfig`` has no fields for the
+knobs everywhere. ``LMConfig`` has no fields for the
 reference's XLA lowering knobs (``kv_block``, ``scan_layers``,
 ``unroll_kv``; the attention's key block changes only the float32
 rounding) or ``logits_bf16``.
@@ -166,20 +173,6 @@ def check_supported(cfg: LMConfig) -> None:
     if cfg.remat_policy not in ("full", "dots"):
         raise ValueError("remat_policy must be 'full' or 'dots', got "
                          f"{cfg.remat_policy!r}")
-
-
-def check_trainable(cfg: LMConfig) -> None:
-    """``check_supported``, and raise NotImplementedError on a MoE or
-    chunked config: without the router aux loss in ``loss_fn`` and a
-    tested backward through the capacity dispatch, training would compute
-    another loss than the reference's."""
-    check_supported(cfg)
-    if cfg.n_experts > 0 or cfg.attn_chunk > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: training a MoE or chunked-attention config (the "
-            "router aux loss, the backward through the dispatch) comes with "
-            "the llama4 training slice of the port; it serves through "
-            "prefill and decode_step")
 
 
 # ---------------------------------------------------------------------------
@@ -404,18 +397,20 @@ def _moe_ffn(cfg: LMConfig, lw: Block,
     return out[:N] * r.gate[:, None].to(dt), r.aux
 
 
-def _ffn(cfg: LMConfig, lw: Block, h2: torch.Tensor) -> torch.Tensor:
-    """One layer's FFN on h2 [B, T, D]: the dense FFN, or on a MoE layer
-    the routed experts over the B * T tokens in row-major order plus the
-    shared expert (the layer's ``gate``, ``up``, ``down``). The router's
-    aux loss is dropped, as the reference's prefill and decode drop it."""
+def _ffn(cfg: LMConfig, lw: Block,
+         h2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer's FFN on h2 [B, T, D] -> (y, the router's aux loss): the
+    dense FFN (aux 0), or on a MoE layer the routed experts over the B * T
+    tokens in row-major order plus the shared expert (the layer's
+    ``gate``, ``up``, ``down``). Prefill and decode drop the aux loss, as
+    the reference's do."""
     if not lw.moe:
-        return _dense_ffn(cfg, lw, h2)
+        return _dense_ffn(cfg, lw, h2), h2.new_zeros((), dtype=torch.float32)
     h2d = h2.reshape(-1, h2.shape[-1])
-    y, _ = _moe_ffn(cfg, lw, h2d)
+    y, aux = _moe_ffn(cfg, lw, h2d)
     if cfg.shared_expert:
         y = y + _dense_ffn(cfg, lw, h2d)
-    return y.reshape(h2.shape)
+    return y.reshape(h2.shape), aux
 
 
 def _layer_flags(cfg: LMConfig, i: int) -> Tuple[bool, bool]:
@@ -477,22 +472,26 @@ def _attention(cfg: LMConfig, impl, q: torch.Tensor, k: torch.Tensor,
 
 
 def _mlp_residual(cfg: LMConfig, lw: Block, x: torch.Tensor,
-                  attn: torch.Tensor) -> torch.Tensor:
-    """Output projection, residual, FFN, residual. attn [B, T, H*Dh]."""
+                  attn: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Output projection, residual, FFN, residual. attn [B, T, H*Dh].
+    Returns (x, the FFN's router aux loss)."""
     rs = scalar(cfg.resid_scale, x.dtype)
     x = x + rs * (attn @ lw.wo.to(x.dtype))
     h2 = rms_norm(x, lw.ln2, plus_one=cfg.norm_plus_one)
-    return x + rs * _ffn(cfg, lw, h2)
+    y, aux = _ffn(cfg, lw, h2)
+    return x + rs * y, aux
 
 
 def _block(cfg: LMConfig, lw: Block, i: int, x: torch.Tensor,
            pos: torch.Tensor, impl=ops):
     """Layer i over a whole prompt from position 0. x [B, T, D].
-    Returns (x, k, v) with k/v [B, T, K, Dh]."""
+    Returns (x, k, v, aux) with k/v [B, T, K, Dh] and the layer's router
+    aux loss (float32, 0 on a dense layer)."""
     is_global, rope_on = _layer_flags(cfg, i)
     q, k, v = _qkv(cfg, lw, x, pos, rope_on)
     attn = _attention(cfg, impl, q, k, v, is_global)
-    return _mlp_residual(cfg, lw, x, attn), k, v
+    x, aux = _mlp_residual(cfg, lw, x, attn)
+    return x, k, v, aux
 
 
 def _block_decode(cfg: LMConfig, lw: Block, i: int, x: torch.Tensor,
@@ -528,7 +527,7 @@ def _block_decode(cfg: LMConfig, lw: Block, i: int, x: torch.Tensor,
            + p_self[..., None] * vn.float()[:, :, :, None, :])
     attn = (out / torch.clamp_min(denom[..., None], 1e-30)).reshape(
         B, T, H * Dh).to(x.dtype)
-    return _mlp_residual(cfg, lw, x, attn), kn, vn
+    return _mlp_residual(cfg, lw, x, attn)[0], kn, vn
 
 
 # ---------------------------------------------------------------------------
@@ -545,16 +544,23 @@ def _logits(cfg: LMConfig, params: LM, x: torch.Tensor) -> torch.Tensor:
     return x @ params.embed.to(x.dtype).T
 
 
-# the 2-D weight products: what remat_policy "dots" keeps for backward
+# the 2-D weight products: what remat_policy "dots" keeps for backward.
+# The MoE's expert products are batched (``bmm`` over [E, cap, D]), so
+# they are recomputed, as the reference's dots_with_no_batch_dims_saveable
+# saves no product with a batch dimension.
 _DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
 
 
 def _layer(cfg: LMConfig, lw: Block, i: int, x: torch.Tensor,
-           pos: torch.Tensor, impl, remat: bool) -> torch.Tensor:
-    """Training layer i: ``_block``'s output, checkpointed by
-    ``cfg.remat_policy`` when ``remat`` is set and grad mode is on."""
+           pos: torch.Tensor, impl, remat: bool
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training layer i: ``_block``'s (x, aux), checkpointed by
+    ``cfg.remat_policy`` when ``remat`` is set and grad mode is on. The
+    recompute routes the recomputed input again: the same ops on the same
+    input give the same routing."""
     def run(x):
-        return _block(cfg, lw, i, x, pos, impl)[0]
+        x, _, _, aux = _block(cfg, lw, i, x, pos, impl)
+        return x, aux
     if not (remat and torch.is_grad_enabled()):
         return run(x)
     if cfg.remat_policy == "dots":
@@ -564,24 +570,26 @@ def _layer(cfg: LMConfig, lw: Block, i: int, x: torch.Tensor,
 
 
 def forward(cfg: LMConfig, params: LM, tokens: torch.Tensor,
-            remat: bool = True, impl=autograd) -> torch.Tensor:
-    """Teacher-forcing forward. tokens int [B, T] -> logits [B, T, V] in
-    the compute dtype. (The reference also returns the MoE router's aux
-    loss, which is 0 for a dense config.)
+            remat: bool = True,
+            impl=autograd) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Teacher-forcing forward. tokens int [B, T] -> (logits [B, T, V] in
+    the compute dtype, the router aux loss): the aux loss is the float32
+    sum of the MoE layers' ``route(...).aux``, 0 on a dense config.
 
     Runs under autograd: with grad mode on and ``remat`` set, each layer
     is checkpointed by ``cfg.remat_policy``. ``impl`` supplies
     ``flash_attention``: ``kernels.autograd`` (the default: the kernel
     forward, the plain version's gradient) or ``kernels.ref`` (the plain
-    version under autograd, on either device). Raises
-    NotImplementedError on a MoE or chunked config (``check_trainable``)."""
-    check_trainable(cfg)
+    version under autograd, on either device)."""
+    check_supported(cfg)
     B, T = tokens.shape
     x = _embed(cfg, params, tokens)
     pos = torch.arange(T, device=x.device).expand(B, T)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lw in enumerate(params.layers):
-        x = _layer(cfg, lw, i, x, pos, impl, remat)
-    return _logits(cfg, params, x)
+        x, a = _layer(cfg, lw, i, x, pos, impl, remat)
+        aux = aux + a
+    return _logits(cfg, params, x), aux
 
 
 def loss_fn(cfg: LMConfig, params: LM, batch,
@@ -591,17 +599,16 @@ def loss_fn(cfg: LMConfig, params: LM, batch,
     ``batch["loss_mask"]`` [B, T + 1]: the float32 cross-entropy of
     ``forward`` over ``tokens[:, :-1]`` against ``tokens[:, 1:]``, the
     logits cut to ``cfg.vocab`` (the padded rows never win). Returns
-    ``(total, {"ce", "router_aux"})``; a dense config's router aux loss is
-    0, so the total is the cross-entropy."""
+    ``(ce + router_aux_weight * aux, {"ce", "router_aux"})``; a dense
+    config's router aux loss is 0."""
     dev = params.embed.device
     tokens = torch.as_tensor(batch["tokens"], device=dev)
-    logits = forward(cfg, params, tokens[:, :-1], impl=impl)
+    logits, aux = forward(cfg, params, tokens[:, :-1], impl=impl)
     mask = batch.get("loss_mask")
     if mask is not None:
         mask = torch.as_tensor(mask, device=dev)[:, 1:]
     ce = softmax_cross_entropy(logits[..., :cfg.vocab], tokens[:, 1:], mask)
-    aux = torch.zeros((), dtype=torch.float32, device=dev)
-    return ce, {"ce": ce, "router_aux": aux}
+    return ce + cfg.router_aux_weight * aux, {"ce": ce, "router_aux": aux}
 
 
 def init_cache(cfg: LMConfig, batch: int, max_seq: int, device=None) -> Cache:
@@ -626,7 +633,7 @@ def prefill(cfg: LMConfig, params: LM, tokens: torch.Tensor, cache: Cache,
     x = _embed(cfg, params, tokens)
     pos = torch.arange(T, device=x.device).expand(B, T)
     for i, lw in enumerate(params.layers):
-        x, k, v = _block(cfg, lw, i, x, pos, impl)
+        x, k, v, _ = _block(cfg, lw, i, x, pos, impl)
         cache["k"][i, :, :T] = k
         cache["v"][i, :, :T] = v
     cache["k"][:, :, T:] = 0

@@ -23,7 +23,15 @@ within 1e-4 (float32) and 2^-6 (bf16) of its largest logit, as
 kernel forward agree with the plain attention's within
 ``test_torch_train.py``'s tolerances (2e-5 float32, 2^-6 bf16). On two or
 more cards, a launch on ``cuda:1`` must leave card 0 current (F10).
+Reduced llama4 scout trains on the card (kernel forward, the chunk split
+of T = 20 into two launches a chunked layer) within
+``test_torch_llama4_train.py``'s tolerances (rtol 1e-4, atol 1e-5 of the
+largest) of the CPU's plain path, the same tokens routed alike; the MoE
+backward gives a dropped token exactly 0 from the routed experts; and the
+recsys and GCN steps on the card stay within those tolerances of the CPU's
+(``index_add`` sums with atomics on the card: allclose, not bitwise).
 """
+import copy
 import dataclasses
 
 import numpy as np
@@ -813,3 +821,175 @@ def test_cuda_train_steps_and_checkpoint_round_trip(sm90, tmp_path):
             assert torch.equal(flat[k].cpu().reshape(-1).view(torch.uint8),
                                w.detach().cpu().reshape(-1).view(
                                    torch.uint8)), k
+
+
+# -- llama4 training and the recsys and GNN families --------------------------
+
+FAMILY_RTOL = 1e-4
+
+
+def _step_pair(sm90, params, loss_fn, batches, accum=1):
+    """The same steps from the same weights on the card and then on the
+    CPU (``make_train_step``, AdamW): for each, the metrics, launches and
+    MoE routings (``transformer.route``'s eidx and keep, in call order) a
+    step, and the parameters after the last."""
+    from repro_torch.train import OptConfig, init_state, make_train_step
+    real = TT.route
+    runs = []
+    for dev in (sm90, torch.device("cpu")):
+        p = copy.deepcopy(params).to(dev).requires_grad_(True)
+        state = init_state(p)
+        step = make_train_step(loss_fn, OptConfig(warmup_steps=1,
+                                                  total_steps=10), accum)
+        ms, launches, routes = [], [], []
+        for b in batches:
+            calls = []
+
+            def rec(*a, **kw):
+                calls.append(real(*a, **kw))
+                return calls[-1]
+            ops.reset_launches()
+            TT.route = rec
+            try:
+                p, state, m = step(p, state, b)
+            finally:
+                TT.route = real
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            ms.append({k: float(v) for k, v in m.items()})
+            launches.append(dict(ops.LAUNCHES))
+            routes.append([(r.eidx.cpu(), r.keep.cpu()) for r in calls])
+        runs.append(dict(metrics=ms, launches=launches, routes=routes,
+                         params={n: t.detach().cpu()
+                                 for n, t in p.named_parameters()}))
+    return runs
+
+
+def _params_within_lr(got, want, metrics, bound=0.05):
+    lr_sum = sum(m["lr"] for m in metrics)
+    for n, w in want.items():
+        err = float((got[n].float() - w.float()).abs().max())
+        assert err <= bound * lr_sum, (n, err / lr_sum)
+
+
+@pytest.mark.gpu
+def test_cuda_reduced_llama4_training_step_matches_cpu(sm90):
+    """Reduced scout in float32 (four MoE layers, layers 0 and 2 chunked
+    with chunks of 8, 1 and 3 global), T = 20: a forward launches
+    ``flash_attention_f32`` twice on a chunked layer (two whole chunks,
+    the tail of 4) and once on a global one, 6 in all, and the remat
+    recompute as many again; the backward none. Two steps at accum 2
+    against the CPU's plain path: every routing equal, metrics within the
+    tolerance, parameters within 0.05 of the summed lr."""
+    from repro_torch.data.pipelines import lm_batch
+    cfg = dataclasses.replace(configs.get("llama4-scout-17b-a16e").REDUCED,
+                              dtype=torch.float32)
+    params = TT.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    batches = [lm_batch(s, 4, 20, cfg.vocab, seed=1) for s in range(2)]
+    fwd_calls = []
+
+    def loss_fn(p, b):
+        n0 = sum(ops.LAUNCHES.values())
+        out = TT.loss_fn(cfg, p, b)
+        fwd_calls.append(sum(ops.LAUNCHES.values()) - n0)
+        return out
+    card, cpu = _step_pair(sm90, params, loss_fn, batches, accum=2)
+    chunked = sum(1 for i in range(cfg.n_layers)
+                  if not TT._layer_flags(cfg, i)[0])
+    per_fwd = 2 * chunked + (cfg.n_layers - chunked)
+    assert per_fwd == 6 and fwd_calls[:4] == [per_fwd] * 4
+    for n in card["launches"]:
+        assert n["flash_attention_f32"] == 2 * per_fwd * 2
+        assert sum(n.values()) == n["flash_attention_f32"]
+    for a, b in zip(card["routes"], cpu["routes"]):
+        assert len(a) == len(b) == 4 * 2 * 2   # layers, fwd + remat, mbs
+        for (ea, ka), (eb, kb) in zip(a, b):
+            assert torch.equal(ea, eb) and torch.equal(ka, kb)
+    for got, want in zip(card["metrics"], cpu["metrics"]):
+        for k in ("loss", "grad_norm"):
+            assert got[k] == pytest.approx(want[k], rel=FAMILY_RTOL), k
+    _params_within_lr(card["params"], cpu["params"], cpu["metrics"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_moe_backward_gives_dropped_tokens_zero(sm90, dtype):
+    """4,096 tokens over four experts at capacity factor 0.5: a quarter
+    and more of the tokens land on the dropped row, written in an order
+    the card does not fix; their routed output and their gradient from it
+    are exactly 0, and every kept token gets a gradient."""
+    cfg = dataclasses.replace(configs.get("llama4-scout-17b-a16e").REDUCED,
+                              dtype=dtype, capacity_factor=0.5)
+    params = TT.init_params(cfg, torch.Generator(device=sm90).manual_seed(0),
+                            sm90).requires_grad_(True)
+    g = torch.Generator(device=sm90).manual_seed(1)
+    x = torch.randn((4096, cfg.d_model), generator=g, device=sm90,
+                    dtype=dtype).requires_grad_(True)
+    lw = params.layers[0]
+    y, _ = TT._moe_ffn(cfg, lw, x)
+    y.backward(torch.randn(y.shape, generator=g, device=sm90, dtype=dtype))
+    r = TT.route(cfg, lw.router, x.detach())
+    kept = torch.zeros(4096, dtype=torch.bool, device=sm90)
+    kept[r.order] = r.keep
+    assert 0 < int(kept.sum()) <= 4 * r.cap < 4096
+    assert bool((y[~kept] == 0).all())
+    assert bool((x.grad[~kept] == 0).all())
+    assert bool((x.grad[kept].abs().sum(-1) > 0).all())
+    assert bool((lw.e_gate.grad != 0).any())
+
+
+def _family_case(name):
+    """(params on the CPU, loss_fn, two batches) of one family at its
+    REDUCED config, from fixed seeds."""
+    from repro_torch.data import graph_sampler as GS
+    from repro_torch.data.pipelines import recsys_batch
+    from repro_torch.models import gnn as N
+    from repro_torch.models import recsys as R
+    gen = torch.Generator().manual_seed(0)
+    if name.startswith("gcn"):
+        cfg = configs.get("gcn-cora").REDUCED
+        kind = name.split("-")[1]
+        if kind == "molecule":
+            def batch(s):
+                b = GS.batched_molecules(16, 30, 64, cfg.d_feat,
+                                         cfg.n_classes, seed=s)
+                b["labels"] = b["labels"][::30]          # one a graph
+                return b
+            fn = N.graph_loss_fn
+        else:
+            g = GS.random_graph(2000, 12000, cfg.d_feat, cfg.n_classes,
+                                seed=3)
+            if kind == "sampled":
+                sampler = GS.NeighborSampler(g, (5, 3), seed=4)
+                batch = lambda s: sampler.sample(np.arange(64) + 64 * s)
+                fn = N.sampled_loss_fn
+            else:
+                batch = lambda s: {"feats": g.feats, "edges": g.edges,
+                                   "labels": g.labels,
+                                   "label_mask": np.ones(g.n, np.float32)}
+                fn = N.loss_fn
+        return (N.init_params(cfg, gen, "cpu"),
+                lambda p, b: fn(cfg, p, b), [batch(0), batch(1)])
+    cfg = configs.get(name).REDUCED
+    batches = [recsys_batch(s, 256, cfg.n_sparse, cfg.vocabs(), cfg.n_dense,
+                            seed=2, kind=cfg.kind, seq_len=cfg.seq_len)
+               for s in range(2)]
+    return (R.init_params(cfg, gen, "cpu"),
+            lambda p, b: R.loss_fn(cfg, p, b), batches)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["fm", "deepfm", "wide-deep", "din",
+                                  "gcn-full", "gcn-molecule", "gcn-sampled"])
+def test_cuda_family_steps_match_cpu(sm90, name):
+    """Two AdamW steps of each recsys config and of the GCN's three losses
+    on the card against the same steps on the CPU: metrics within
+    rtol 1e-4, parameters within 0.05 of the summed lr."""
+    params, loss_fn, batches = _family_case(name)
+    card, cpu = _step_pair(sm90, params, loss_fn, batches)
+    for got, want in zip(card["metrics"], cpu["metrics"]):
+        assert set(got) == set(want)
+        for k in ("loss", "grad_norm"):
+            assert got[k] == pytest.approx(want[k], rel=FAMILY_RTOL), k
+    _params_within_lr(card["params"], cpu["params"], cpu["metrics"])
+    assert all(sum(n.values()) == 0 for n in card["launches"])

@@ -286,13 +286,24 @@ def test_serving_copy_computes_the_same_values():
 
 @pytest.mark.parametrize("arch", list(ARCHS))
 def test_training_raises_and_names_its_slice(arch):
+    """llama4 trains since its training slice: ``forward`` returns the
+    logits and the router aux loss summed over the MoE layers, and
+    ``loss_fn``'s total adds ``router_aux_weight`` times it (the
+    gradients are held in ``test_torch_llama4_train.py``); only the bf16
+    score knobs still raise."""
     cfg = configs.get(arch).REDUCED
     params = TT.init_params(cfg, torch.Generator(), device="cpu")
     toks = torch.zeros((1, 9), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="llama4 training slice"):
-        TT.forward(cfg, params, toks[:, :-1])
-    with pytest.raises(NotImplementedError, match="llama4 training slice"):
-        TT.loss_fn(cfg, params, {"tokens": toks})
+    logits, aux = TT.forward(cfg, params, toks[:, :-1])
+    assert tuple(logits.shape) == (1, 8, cfg.padded_vocab)
+    assert aux.dtype == torch.float32 and float(aux) > 0
+    total, m = TT.loss_fn(cfg, params, {"tokens": toks})
+    assert float(m["router_aux"]) == float(aux)
+    assert float(total) == pytest.approx(
+        float(m["ce"]) + cfg.router_aux_weight * float(aux), rel=1e-6)
+    with pytest.raises(NotImplementedError, match="slice"):
+        TT.forward(dataclasses.replace(cfg, attn_p_bf16=True), params,
+                   toks[:, :-1])
 
 
 def test_lm_model_flops_counts_moe_and_chunks():

@@ -95,7 +95,8 @@ def run(request):
             steps.append((logits, cache))
         out["ref"]["decode"] = steps
     ttoks = torch.from_numpy(toks)
-    out["port"]["forward"] = TT.forward(tcfg, params, ttoks[:, :T])
+    out["port"]["forward"], aux = TT.forward(tcfg, params, ttoks[:, :T])
+    assert aux.dtype == torch.float32 and float(aux) == 0.0   # dense
     cache = TT.init_cache(tcfg, B, T + 8, device="cpu")
     logits, cache = TT.prefill(tcfg, params, ttoks[:, :T], cache)
     out["port"]["prefill"] = (logits, {k: v.clone() for k, v in
@@ -187,23 +188,26 @@ def test_configs_copy_the_reference():
             assert tcfg.param_count() == rcfg.param_count()
             assert tcfg.dtype == torch.bfloat16
     with pytest.raises(KeyError, match="not ported"):
-        configs.get("fm")
+        configs.get("jag-billion")
 
 
 @pytest.mark.parametrize("change", [dict(n_experts=4), dict(attn_chunk=8),
                                     dict(attn_p_bf16=True),
                                     dict(attn_scores_bf16=True)])
 def test_configs_of_later_slices_raise(change):
-    """MoE and chunked configs serve, and their training (a later slice)
-    raises; the bf16 score knobs raise everywhere."""
+    """MoE and chunked configs serve and train (the MoE's aux loss is
+    positive, a chunked config's 0); the bf16 score knobs raise
+    everywhere."""
     cfg = dataclasses.replace(configs.get("qwen3-1.7b").REDUCED, **change)
     toks = torch.zeros((1, 4), dtype=torch.long)
     if "n_experts" in change or "attn_chunk" in change:
         params = TT.init_params(cfg, torch.Generator(), device="cpu")
-        with pytest.raises(NotImplementedError, match="slice"):
-            TT.forward(cfg, params, toks)
-        with pytest.raises(NotImplementedError, match="slice"):
-            TT.loss_fn(cfg, params, {"tokens": toks})
+        logits, aux = TT.forward(cfg, params, toks)
+        assert tuple(logits.shape) == (1, 4, cfg.padded_vocab)
+        assert (float(aux) > 0) == ("n_experts" in change)
+        total, m = TT.loss_fn(cfg, params, {"tokens": toks})
+        assert float(total) == pytest.approx(
+            float(m["ce"]) + cfg.router_aux_weight * float(m["router_aux"]))
         logits, _ = TT.prefill(cfg, params, toks,
                                TT.init_cache(cfg, 1, 4, "cpu"))
         assert bool(torch.isfinite(logits).all())

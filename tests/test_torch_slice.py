@@ -152,14 +152,19 @@ def test_port_imports_neither_jax_nor_repro():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 70, names\n"
+        "assert len(names) >= 78, names\n"
         "assert {'repro_torch.core.quantized', 'repro_torch.stream.delta',"
         " 'repro_torch.stream.index', 'repro_torch.train.optimizer',"
         " 'repro_torch.train.steps', 'repro_torch.kernels.autograd',"
         " 'repro_torch.data.pipelines',"
         " 'repro_torch.checkpoint.checkpoint',"
         " 'repro_torch.configs.llama4_scout_17b_a16e',"
-        " 'repro_torch.configs.llama4_maverick_400b_a17b'} <= set(names),"
+        " 'repro_torch.configs.llama4_maverick_400b_a17b',"
+        " 'repro_torch.models.recsys', 'repro_torch.models.gnn',"
+        " 'repro_torch.data.graph_sampler', 'repro_torch.configs.fm',"
+        " 'repro_torch.configs.deepfm', 'repro_torch.configs.wide_deep',"
+        " 'repro_torch.configs.din', 'repro_torch.configs.gcn_cora'}"
+        " <= set(names),"
         " names\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(src))

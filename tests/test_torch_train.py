@@ -174,7 +174,9 @@ def test_remat_policies_equal_no_remat_bitwise(policy):
         cfg = dataclasses.replace(tcfg, remat_policy=policy)
         params = TT.params_from_jax(cfg, tree, device="cpu")
         params.requires_grad_(True)
-        logits = TT.forward(cfg, params, toks[:, :-1], remat=mode != "none")
+        logits, aux = TT.forward(cfg, params, toks[:, :-1],
+                                 remat=mode != "none")
+        assert float(aux) == 0.0
         loss = softmax_cross_entropy(logits[..., :cfg.vocab], toks[:, 1:])
         loss.backward()
         out[mode] = (loss.detach(), {n: p.grad for n, p in
