@@ -48,7 +48,7 @@ result line:
    the card's popcount rate (SMs x 16 a clock x nvidia-smi's
    clocks.max.sm), not at the FP32 rate.
 4. Slice A, the main path at MSTuring's published width: msturing_subset
-   (d = 100, 30 Bernoulli(1/2) subset attributes, N = 600,000, cut
+   (d = 100, 30 Bernoulli(1/2) subset attributes, N = 500,000, cut
    from 1,000,000 to keep the script's time),
    ``JAGIndex.build`` on the card (degree 128, ls_build 96, cand_pool
    192, batch 8192: at degree 96 or less the graph route's recall at
@@ -69,21 +69,21 @@ result line:
    group's shapes, timed cold (the ``int8`` record of its kernel report);
    ``quantize_int8`` on 65,536 rows equal on the card and the CPU, bit for
    bit. Streaming: ``StreamingJAGIndex`` over the index (compact_frac 0.25,
-   so nothing compacts by itself) takes 12,000 rows (2% of N) in 4 batches
-   of 3,000, drawn with their own generator (seed 1): slice A rows at
+   so nothing compacts by itself) takes 10,000 rows (2% of N) in 4 batches
+   of 2,500, drawn with their own generator (seed 1): slice A rows at
    random ids plus Gaussian noise of 0.1x the per-dim std, and 30
    Bernoulli(1/2) subset bits. ``search_auto(layout="fused")`` over base +
-   delta: prefilter ids equal ``exact_filtered_knn`` over the 612,000
+   delta: prefilter ids equal ``exact_filtered_knn`` over the 510,000
    concatenated rows, graph recall at least 0.80 against it, every
    realized route ends in ``+delta``, the delta scan alone launches
    ``gather_dist_tile`` and ``bitset_dist``, and ``gather_dist_tile`` on
    the delta's padded last block (tile 4096) is bit-exact with its plain
-   version. ``compact()`` (timed): 612,000 graph rows, every inserted row
+   version. ``compact()`` (timed): 510,000 graph rows, every inserted row
    at least R / 8 edges, the extended f32 layout equal to ``build_layout``
    over the concatenated rows bit for bit; then the same search with the
    delta empty (prefilter exact, graph recall at least 0.80, inserted rows
    among the graph route's ids) and ``search_int8``, whose int8 layout is
-   rebuilt over 612,000 rows. QPS per route of each served batch is
+   rebuilt over 510,000 rows. QPS per route of each served batch is
    printed beside slice A's; no gate.
 6. Slice E, the cost model and serving telemetry over slice A's index (no
    rebuild). Calibration on the card over ``cost.FULL_GRID`` (ns 8000 and
@@ -299,6 +299,39 @@ result line:
    ``sampled_loss_fn``. 1 warm-up and 4 timed AdamW steps each; losses
    and parameters finite. Printed: the host's generation, CSR and
    sampling seconds, step seconds, peak memory and loss a step.
+16. Slice M, the cell registry and the launch layer
+   (``repro_torch.configs.registry``, ``repro_torch.launch``). (a)
+   ``launch.dryrun`` over every (arch x shape) cell on the (16, 16) and
+   (2, 16, 16) meshes, started after the build in a process of its own
+   that does not see the card (the meta device) and read here: exit 0,
+   no failed cell, each cell run on meta or analytic only with its
+   reason; printed: ok / analytic-only / failed counts and the cells
+   whose per-card state does not fit (the data sheet's 80 GB and this
+   card's memory). (b) ``perf --cell qwen3_train``: qwen3-1.7b at its
+   published width and depth with ``attn_scores_bf16`` (v2) and with
+   remat "dots" too (v3), ``train_4k`` cut to 4 x 4,096 tokens as accum
+   2, a warm-up and 2 timed steps each: the main path of the kernel's
+   bf16-score variant, which must launch exactly 28 x 2 x 2 = 112 times
+   a step and nothing else launch; the first step's loss within 2^-12
+   (relative) of the plain attention's on the same weights, and the
+   output of the step's first attention call (layer 0) against the plain
+   version on its inputs, within the variant's gate (below). (c) ``perf --cell
+   jag_serve``: the five serve variants over one shard of serve_1b at
+   its published width (2^22 rows, d 128, row width 80; seeded random
+   data, uniform adjacency; 256 queries in place of 4096); each result
+   holds together (ids in range, finite keys, every id at primary 0
+   inside its range filter). (d) ``perf --cell din_train``: float32 and
+   bf16 tables timed at 65,536 rows, the rules' per-card state of all
+   four variants. (e) ``launch.train --scale tiny`` crashed at step 6
+   (exit 42), resumed from step 4 and run beside a control: the last
+   loss within 2e-2 of the control's (the reference's test). (f) the
+   variant (both knobs) against its plain version and SDPA at slice C's
+   prefill shape, its ms and bound. The variant's gate is element by
+   element: every output within one bf16 step (2^-7 of the plain value)
+   plus 2^-6, and at most 2^-9 of the outputs past one step plus 1e-5
+   (``bf16_variant_gate``); the split kernel (flash_attention, knobs
+   ignored) must fail it on the same inputs, which shows that the gate
+   tells the rounding points apart.
 
 The last lines are nvidia-smi's card line, one JSON object with a record
 per kernel, and ``{"ok": true, "device": {...}}``.
@@ -306,10 +339,12 @@ per kernel, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import atexit
 import dataclasses
 import itertools
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -757,7 +792,7 @@ def run_slice_d(torch, np, idx, ds, q_all, gt, f32_recall, f32_qps, kernels,
 
     # -- streaming: inserts, merged search, compaction ---------------------
     n_batches = 4
-    M = N // 50 // n_batches * n_batches    # 2% of N: 12,000 at 600k rows
+    M = N // 50 // n_batches * n_batches    # 2% of N: 10,000 at 500k rows
     rng = np.random.default_rng(1)
     std = idx.xb.std(0).cpu().numpy()
     src = rng.integers(0, N, M)
@@ -1846,7 +1881,7 @@ def run_slice_h(torch, np, dev, seed: int) -> dict:
                                    init_state, make_train_step)
 
     t_phase = time.perf_counter()
-    lm = dataclasses.replace(configs.get(LM_ARCH).CONFIG, remat_policy="full")
+    lm = dataclasses.replace(configs.get(LM_ARCH).make_config(), remat_policy="full")
     lm32 = dataclasses.replace(lm, dtype=torch.float32)
     full = LM_SHAPES["train_4k"]
     seq, n_tok = full["seq"], H_BATCH * full["seq"]
@@ -2074,7 +2109,7 @@ def run_slice_i(torch, np, dev, seed: int, kernels: dict) -> dict:
         return float(t.float().abs().max())
 
     t_phase = time.perf_counter()
-    full = configs.get(I_ARCH).CONFIG
+    full = configs.get(I_ARCH).make_config()
     lm = dataclasses.replace(full, n_layers=I_LAYERS)
     lm32 = dataclasses.replace(lm, dtype=torch.float32)
     B, T, C, E = I_BATCH, I_PROMPT, lm.attn_chunk, lm.n_experts
@@ -2337,7 +2372,7 @@ def run_slice_j(torch, np, dev, seed: int, kernels: dict) -> dict:
                                    init_state, make_train_step)
 
     t_phase = time.perf_counter()
-    full = configs.get(I_ARCH).CONFIG
+    full = configs.get(I_ARCH).make_config()
     lm = dataclasses.replace(full, n_layers=J_LAYERS, remat_policy="full")
     lm32 = dataclasses.replace(lm, dtype=torch.float32)
     shp = LM_SHAPES["train_4k"]
@@ -2562,7 +2597,7 @@ def run_slice_k(torch, np, dev, seed: int) -> dict:
     out = {}
     for arch in K_ARCHS:
         t_arch = time.perf_counter()
-        cfg = configs.get(arch).CONFIG
+        cfg = configs.get(arch).make_config()
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         params = R.init_params(cfg, gen, dev).requires_grad_(True)
@@ -2838,9 +2873,348 @@ def run_slice_l(torch, np, dev, seed: int) -> dict:
     return out
 
 
+M_ATTN_STEP = 2.0 ** -7        # variant vs plain: one bf16 step of each
+M_ATTN_FLIP = 2.0 ** -6        # ... plus this at any output
+M_ATTN_PAST = 2.0 ** -9        # share of outputs past one step (+ 1e-5)
+M_LOSS_TOL = 2.0 ** -12        # first loss, variant vs plain, relative
+M_TRAIN_STEPS, M_CRASH_AT = 12, 6   # slice M (e): tiny LM, crash, resume
+M_RESUME_TOL = 2e-2            # last loss, resumed vs control (reference's)
+
+
+def start_dryrun(out_json: str):
+    """Slice M (a), started early: ``repro_torch.launch.dryrun`` over every
+    cell on both meshes in a process of its own (CPU only: the meta
+    device), writing its rows to ``out_json``. Returns (process, log
+    path)."""
+    root = Path(__file__).resolve().parent
+    log_path = str(Path(out_json).with_suffix(".log"))
+    env = dict(os.environ, PYTHONPATH=str(root / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--out",
+         out_json], cwd=root, env=env, stdout=open(log_path, "w"),
+        stderr=subprocess.STDOUT)
+    return proc, log_path
+
+
+def bf16_variant_gate(torch, got, want) -> dict:
+    """The bf16-score variant's output against its plain version's, element
+    by element. Both round S and p at the same points and their outputs to
+    bf16, so most outputs agree within one bf16 step (2^-7 of the value,
+    plus 1e-5). Where their float32 sums (another order) put a score or a
+    p on either side of a bf16 rounding point, that p moves by a bf16 step
+    and its row's outputs with it: every output must stay within one step
+    plus M_ATTN_FLIP, and at most M_ATTN_PAST of them may pass one step.
+    Returns the largest error, the largest output, the largest excess over
+    one step, the share past one step and ``ok``."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    step = M_ATTN_STEP * want.abs()
+    excess = float((err - step).max())
+    past = float((err > step + 1e-5).float().mean())
+    return dict(max_abs_err=float(err.max()), largest=float(want.abs().max()),
+                excess=excess, past_share=past,
+                ok=bool(torch.isfinite(got).all()) and excess <= M_ATTN_FLIP
+                and past <= M_ATTN_PAST)
+
+
+def gate_line(g: dict) -> str:
+    return (f"max |d| {g['max_abs_err']:.4g} of the largest output "
+            f"{g['largest']:.4g}, largest excess over one bf16 step "
+            f"{g['excess']:.4g} (limit {M_ATTN_FLIP:.4g}), share past one "
+            f"step {g['past_share']:.4g} (limit {M_ATTN_PAST:.4g})")
+
+
+def check_flash_bf16(torch, ops, ref, q, k, v, **flags) -> dict:
+    """``bf16_variant_gate`` of the bf16-score variant against its plain
+    version on q, k, v; one launch of the variant. Raises off the gate."""
+    before = ops.LAUNCHES["flash_attention_bf16"]
+    got = ops.flash_attention(q, k, v, **flags)
+    if ops.LAUNCHES["flash_attention_bf16"] != before + 1:
+        raise AssertionError(f"{flags}: flash_attention_bf16 did not launch")
+    gate = bf16_variant_gate(torch, got, ref.flash_attention(q, k, v,
+                                                             **flags))
+    if not gate["ok"]:
+        raise AssertionError(f"flash_attention_bf16 {flags}: "
+                             + gate_line(gate))
+    return gate
+
+
+class FirstAttention:
+    """While installed, keeps the inputs, flags and output of the first
+    knobbed ``ops.flash_attention`` call (the main path's layer 0)."""
+
+    def __init__(self, ops):
+        self.ops, self.real, self.call = ops, ops.flash_attention, None
+
+    def __enter__(self):
+        def spy(q, k, v, **kw):
+            out = self.real(q, k, v, **kw)
+            if self.call is None and (kw.get("scores_bf16")
+                                      or kw.get("p_bf16")):
+                self.call = (q.detach(), k.detach(), v.detach(), kw, out)
+            return out
+        self.ops.flash_attention = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.flash_attention = self.real
+
+
+def run_slice_m(torch, np, dev, seed: int, kernels: dict, dry) -> dict:
+    """Slice M: the cell registry, the dry run, the perf harness and the
+    training launcher (``repro_torch.configs.registry``,
+    ``repro_torch.launch``). (a) the dry run's rows (started in its own
+    process after the build); (b) ``perf --cell qwen3_train``, the main
+    path of the bf16-score kernel variant; (c) ``jag_serve``; (d)
+    ``din_train``; (e) ``launch.train --scale tiny`` crashed at step
+    M_CRASH_AT, resumed, and a control run; (f) the variant against its
+    plain version and SDPA at slice C's prefill shape. Every gate raises;
+    returns the phase's report."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import perf
+    from repro_torch.launch import roofline as RL
+    from repro_torch import configs
+
+    t_phase = time.perf_counter()
+    out = {}
+
+    # (a) the dry run: every cell on both production meshes
+    proc, out_json, log_path = dry
+    t0 = time.perf_counter()
+    rc = proc.wait()
+    wait_s = time.perf_counter() - t0
+    text = Path(log_path).read_text()
+    rows = json.loads(Path(out_json).read_text()) if Path(
+        out_json).exists() else {"results": [], "failures": []}
+    res, fails = rows["results"], rows["failures"]
+    n_ok = sum(r["status"] == "ok" for r in res)
+    n_an = sum(r["status"] == "analytic_only" for r in res)
+    log(f"[slice M] dry run: exit {rc}, {n_ok} ok, {n_an} analytic only, "
+        f"{len(fails)} failed of {len(res) + len(fails)} rows (waited "
+        f"{wait_s:.1f} s at slice M)")
+    for r in res:
+        if r["status"] == "analytic_only" and r["mesh"] == "single":
+            log(f"[slice M]   {r['arch']} x {r['shape']}: analytic only: "
+                f"{r['reason']}")
+    fit = {m: sorted(f"{r['arch']}:{r['shape']}" for r in res
+                     if r["mesh"] == m and not r["fits"])
+           for m in ("single", "multi")}
+    for m, cells in fit.items():
+        log(f"[slice M]   {m}: {len(cells)} cells whose state does not fit "
+            f"a card: {cells}")
+    # the dry run's process does not see the card, so its rows hold the
+    # data sheet's 80 GB; hold the state against this card's memory too
+    card = torch.cuda.get_device_properties(dev).total_memory
+    on_card = {m: sorted(f"{r['arch']}:{r['shape']}" for r in res
+                         if r["mesh"] == m
+                         and r["state_bytes"]["total"] > card)
+               for m in ("single", "multi")}
+    log(f"[slice M]   against this card's {card / 2 ** 30:.2f} GiB: "
+        f"{ {m: len(c) for m, c in on_card.items()} } cells do not fit")
+    n_cells = sum(len(s.shapes) for s in configs.all_archs().values())
+    if rc != 0 or fails or len(res) != 2 * n_cells:
+        raise AssertionError(f"the dry run failed (exit {rc}, {fails}); "
+                             f"its log ends: {text[-2000:]}")
+    meta_s = sum(r["meta_run_s"] for r in res)
+    out["dryrun"] = dict(ok=n_ok, analytic_only=n_an, failed=len(fails),
+                         not_fitting=fit, not_fitting_card=on_card,
+                         card_bytes=card, meta_run_s=meta_s, wait_s=wait_s,
+                         rows=res)
+
+    # (b) the main path of the variant: qwen3-1.7b training at full width
+    # and depth with attn_scores_bf16 (v2) and with remat "dots" (v3)
+    torch.cuda.empty_cache()
+    rows_b = []
+    ops.reset_launches()
+    with FirstAttention(ops) as first:
+        perf.lm_train_variants("qwen3-1.7b", rows_b, dev, batch=4, accum=2,
+                               steps=2, seed=seed, check_plain=True)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    log(f"[slice M] qwen3_train launches over both variants: {launches}")
+    lm = configs.get(LM_ARCH).make_config()
+    per_step = lm.n_layers * 2 * 2          # forward + recompute, accum 2
+    for r in rows_b:
+        la = r["launches_per_step"]
+        if la != {"flash_attention_bf16": per_step}:
+            raise AssertionError(f"{r['tag']}: a step launched {la}, not "
+                                 f"{per_step} of flash_attention_bf16")
+        diff = abs(r["losses"][0] - r["plain_loss"])
+        log(f"[slice M] qwen3_train {r['tag']}: {r['s_per_step']:.4f} s a "
+            f"step, {r['tokens_per_s']:.1f} tokens/s, "
+            f"{100 * r['bound_share']:.2f}% of its bound, peak "
+            f"{(r['peak_bytes'] or 0) / 2 ** 30:.2f} GiB; first loss "
+            f"{r['losses'][0]!r} (plain attention {r['plain_loss']!r}, "
+            f"|d| {diff:.4g}); losses {r['losses']}")
+        if not (r["finite"] and diff <= M_LOSS_TOL * abs(r["plain_loss"])):
+            raise AssertionError(f"qwen3_train {r['tag']}: losses "
+                                 f"{r['losses']} vs plain {r['plain_loss']}"
+                                 f" (limit {M_LOSS_TOL} of it)")
+    if launches["flash_attention_bf16"] <= 0 or first.call is None:
+        raise AssertionError("the variant never ran on slice M's path")
+    # the first attention call of the path (layer 0 of v2's warm-up step)
+    # against the plain version on its own inputs
+    q, k, v, kw, got = first.call
+    with torch.no_grad():
+        gate = bf16_variant_gate(torch, got, ref.flash_attention(q, k, v,
+                                                                 **kw))
+    log(f"[slice M] qwen3_train layer 0 attention q{list(q.shape)} {kw}, "
+        f"variant vs plain: " + gate_line(gate))
+    if not gate["ok"]:
+        raise AssertionError("qwen3_train: the main path's attention is off "
+                             "the variant's gate")
+    out["qwen3_train_attention"] = gate
+    del q, k, v, got, first
+    kernels["flash_attention_bf16"]["launches"] = \
+        launches["flash_attention_bf16"]
+    out["qwen3_train"] = rows_b
+    torch.cuda.empty_cache()
+
+    # (c) JAG serve_1b's five variants on one shard at its published width
+    rows_c = []
+    t0 = time.perf_counter()
+    perf.jag_serve_variants(rows_c, dev, n_local=1 << 22, queries=256,
+                            steps=2, seed=seed)
+    for r in rows_c:
+        log(f"[slice M] jag_serve {r['tag']}: {r['ms']:.2f} ms a step of "
+            f"{r['queries']} queries, {r['qps']:.1f} QPS, "
+            f"{100 * r['bound_share_fp32']:.4f}% of the FP32 flops bound "
+            f"({100 * r['bound_share_bf16']:.5f}% at the bf16 peak)")
+        if not r["results_ok"]:
+            raise AssertionError(f"jag_serve {r['tag']}: results do not hold")
+    log(f"[slice M] jag_serve {time.perf_counter() - t0:.1f} s")
+    out["jag_serve"] = rows_c
+    torch.cuda.empty_cache()
+
+    # (d) din at train_batch: the table dtypes timed, the rules accounted
+    rows_d = []
+    perf.din_train_variants(rows_d, dev, steps=3, seed=seed)
+    for r in rows_d:
+        log(f"[slice M] din_train {r['tag']}: {1e3 * r['s_per_step']:.2f} "
+            f"ms a step ({r['timed_as']} table), "
+            f"{r['examples_per_s']:.1f} examples/s, state a card on "
+            f"(16, 16) {r['state_bytes_16x16']['total'] / 2 ** 20:.1f} MiB")
+        if not r["finite"]:
+            raise AssertionError(f"din_train {r['tag']}: not finite")
+    out["din_train"] = rows_d
+    torch.cuda.empty_cache()
+
+    # (e) the training launcher: crash at step M_CRASH_AT, resume, control
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    tmp = tempfile.mkdtemp(prefix="slice_m_train_")
+    try:
+        base = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                LM_ARCH, "--scale", "tiny", "--steps", str(M_TRAIN_STEPS),
+                "--ckpt-every", "4", "--device", dev.type, "--seed", str(seed)]
+        run1 = base + ["--ckpt-dir", f"{tmp}/ck", "--metrics-out",
+                       f"{tmp}/m1.jsonl"]
+        ctrl = base + ["--ckpt-dir", f"{tmp}/ck3", "--metrics-out",
+                       f"{tmp}/m3.jsonl"]
+        t0 = time.perf_counter()
+        # the crashed run and the control run share the card
+        p1 = subprocess.Popen(run1 + ["--fail-at-step", str(M_CRASH_AT)],
+                              cwd=root, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        p3 = subprocess.Popen(ctrl, cwd=root, env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        o1, o3 = p1.communicate()[0], p3.communicate()[0]
+        r2 = subprocess.run(run1, cwd=root, env=env, capture_output=True,
+                            text=True)
+        t_train = time.perf_counter() - t0
+        if p1.returncode != 42 or p3.returncode != 0 or r2.returncode != 0:
+            raise AssertionError(f"launch.train exits {p1.returncode}, "
+                                 f"{r2.returncode}, {p3.returncode}: "
+                                 f"{o1[-800:]} {r2.stderr[-800:]} "
+                                 f"{o3[-800:]}")
+        if f"resumed from step {M_CRASH_AT - M_CRASH_AT % 4}" not in \
+                r2.stdout:
+            raise AssertionError(f"no resume: {r2.stdout[-800:]}")
+        m1 = [json.loads(x) for x in open(f"{tmp}/m1.jsonl")]
+        m3 = [json.loads(x) for x in open(f"{tmp}/m3.jsonl")]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    last = M_TRAIN_STEPS - 1
+    l1 = [m for m in m1 if m["step"] == last][-1]["loss"]
+    l3 = [m for m in m3 if m["step"] == last][-1]["loss"]
+    dts = [m["dt"] for m in m3 if m["step"] > 0]
+    log(f"[slice M] launch.train --scale tiny: crashed at step "
+        f"{M_CRASH_AT} (exit 42), resumed from step "
+        f"{M_CRASH_AT - M_CRASH_AT % 4}; last loss {l1!r} against the "
+        f"control's {l3!r}: |d| {abs(l1 - l3):.4g} (limit {M_RESUME_TOL}); "
+        f"control step {1e3 * float(np.median(dts)):.1f} ms (median); three "
+        f"runs {t_train:.1f} s")
+    if not abs(l1 - l3) < M_RESUME_TOL:
+        raise AssertionError(f"resumed loss {l1} vs control {l3}")
+    out["train"] = dict(resumed_loss=l1, control_loss=l3,
+                        diff=abs(l1 - l3), control_step_ms=1e3 * float(
+                            np.median(dts)), seconds=t_train)
+
+    # (f) the variant against its plain version and SDPA at slice C's
+    # prefill shape: attn_scores_bf16 (the main path's knob), then p_bf16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    fshape = (LM_BATCH, lm.n_heads, LM_PROMPT, lm.hd)
+    kshape = (LM_BATCH, lm.n_kv_heads, LM_PROMPT, lm.hd)
+    fq, fk, fv = (torch.randn(sh, generator=gen, device=dev).bfloat16()
+                  for sh in (fshape, kshape, kshape))
+    attn = dict(B=LM_BATCH, H=lm.n_heads, Hkv=lm.n_kv_heads, T=LM_PROMPT,
+                D=lm.hd)
+    b, o = RL.kernel_bound_ms("flash_attention_bf16", **attn)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    modes = {}
+    split = ops.flash_attention(fq, fk, fv)
+    for knob in ("scores_bf16", "p_bf16"):
+        flags = {knob: True}
+        gate = check_flash_bf16(torch, ops, ref, fq, fk, fv, **flags)
+        # the split kernel keeps p to 2^-17, against the knobs' rounding
+        # points: the gate must refuse it
+        ctrl = bf16_variant_gate(torch, split, ref.flash_attention(
+            fq, fk, fv, **flags))
+        log(f"[slice M] {knob}: variant vs plain: {gate_line(gate)}; the "
+            f"split kernel vs the same: {gate_line(ctrl)}")
+        if ctrl["ok"]:
+            raise AssertionError(f"{knob}: the split kernel passes the "
+                                 "variant's gate, which then cannot tell "
+                                 "the rounding points apart")
+        modes[knob] = dict(
+            gate, split_vs_plain=ctrl,
+            ms=cuda_ms(torch, lambda: ops.flash_attention(fq, fk, fv,
+                                                          **flags), 5),
+            plain_ms=cuda_ms(torch, lambda: ref.flash_attention(
+                fq, fk, fv, **flags), 2, warmup=1))
+    del split
+    split_ms = cuda_ms(torch, lambda: ops.flash_attention(fq, fk, fv), 5)
+    lib = cuda_ms(torch, lambda: sdpa(fq, fk, fv, is_causal=True,
+                                      enable_gqa=True), 10)
+    for knob, m in modes.items():
+        log(f"[slice M] flash_attention_bf16 ({knob}) "
+            f"q[{','.join(map(str, fshape))}]: max_abs_err "
+            f"{m['max_abs_err']:.3g} of the largest output "
+            f"{m['largest']:.4g}, {m['ms']:.4f} ms (plain "
+            f"{m['plain_ms']:.4f} ms, bound {b:.4f} ms by {o}, SDPA "
+            f"{lib:.4f} ms, the split-p kernel {split_ms:.4f} ms)")
+    sm = modes["scores_bf16"]
+    kernels["flash_attention_bf16"].update(
+        shape=f"q[{','.join(map(str, fshape))}] "
+              f"kv[{','.join(map(str, kshape))}] bf16 causal scores_bf16",
+        max_abs_err=sm["max_abs_err"], ms=sm["ms"], plain_ms=sm["plain_ms"],
+        bound_ms=b, bound_by=o, library_ms=lib, p_bf16=modes["p_bf16"],
+        split_kernel_ms=split_ms)
+    del fq, fk, fv
+    torch.cuda.empty_cache()
+    out["flash_attention_bf16"] = dict(modes=modes, split_ms=split_ms,
+                                       sdpa_ms=lib, bound_ms=b)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[slice M] {out['phase_s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--n", type=int, default=600_000,
+    ap.add_argument("--n", type=int, default=500_000,
                     help="slice A database rows")
     ap.add_argument("--batch-size", type=int, default=8192,
                     help="JAGConfig.batch_size of slice A's build")
@@ -2914,6 +3288,12 @@ def main(argv=None) -> int:
             log(f"[build] {name}: {fn}: {regs} registers, {spill} bytes of "
                 "spill stores")
     report["kernel_build_s"] = t_build
+    # slice M (a): the dry run on the meta device, in a process of its own
+    # while the card works; read at slice M
+    dry_json = str(Path(tempfile.mkdtemp(prefix="slice_m_dry_"))
+                   / "dryrun.json")
+    dry_proc, dry_log = start_dryrun(dry_json)
+    atexit.register(lambda: dry_proc.poll() is None and dry_proc.kill())
     for name, opcode in (("flash_attention", "HGMMA"), ("l2dist", "HGMMA"),
                          ("flash_attention_f32", "HGMMA"),
                          ("flash_attention_f32", "HMMA")):
@@ -3080,7 +3460,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # flash_attention: one layer of slice C's prefill
-    lm = configs.get(LM_ARCH).CONFIG
+    lm = configs.get(LM_ARCH).make_config()
     fshape = (LM_BATCH, lm.n_heads, LM_PROMPT, lm.hd)
     kshape = (LM_BATCH, lm.n_kv_heads, LM_PROMPT, lm.hd)
     fq, fk, fv = (torch.randn(sh, generator=gen, device=dev).to(lm.dtype)
@@ -3564,7 +3944,16 @@ def main(argv=None) -> int:
     # -- 15. slice L: GCN training (full batch, batched graphs, sampled) -----
     report["slice_l"] = run_slice_l(torch, np, dev, args.seed)
 
-    report["kernels"] = [kernels[n] for n in _build.SOURCES]
+    # -- 16. slice M: registry, dry run, perf harness, training launcher -----
+    kernels["flash_attention_bf16"] = dict(
+        name="flash_attention_bf16", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attn.py:66")
+    report["slice_m"] = run_slice_m(torch, np, dev, args.seed, kernels,
+                                    (dry_proc, dry_json, dry_log))
+    shutil.rmtree(Path(dry_json).parent, ignore_errors=True)
+
+    report["kernels"] = [kernels[n] for n in _build.KERNELS]
     report["total_s"] = time.perf_counter() - t_start
     log(f"[done] {report['total_s']:.1f} s")
     if args.out:

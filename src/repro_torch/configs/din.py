@@ -3,6 +3,7 @@ sequence; embed_dim=18, attention MLP 80-40, main MLP 200-80."""
 import dataclasses
 
 from ..models.recsys import RecsysConfig
+from .registry import ArchSpec
 
 CONFIG = RecsysConfig(
     name="din", kind="din", n_sparse=1, embed_dim=18,
@@ -11,3 +12,8 @@ CONFIG = RecsysConfig(
 
 REDUCED = dataclasses.replace(CONFIG, total_vocab=4096, seq_len=16,
                               mlp_dims=(32, 16), attn_mlp_dims=(16, 8))
+
+SPEC = ArchSpec(id="din", family="recsys",
+                make_config=lambda shape=None: CONFIG,
+                make_reduced=lambda: REDUCED,
+                notes="target attention (attn_mlp over h,t,h-t,h*t)")

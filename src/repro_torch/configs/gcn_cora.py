@@ -2,6 +2,7 @@
 aggregation. Per-shape d_feat/n_classes follow the assigned shape set
 (cora / reddit-sampled / ogbn-products / molecules)."""
 from ..models.gnn import GCNConfig
+from .registry import ArchSpec
 from .shapes import GNN_SHAPES
 
 
@@ -18,3 +19,8 @@ CONFIG = make_config()
 
 REDUCED = GCNConfig(name="gcn-cora", n_layers=2, d_hidden=16,
                     d_feat=32, n_classes=5)
+
+SPEC = ArchSpec(id="gcn-cora", family="gnn", make_config=make_config,
+                make_reduced=lambda: REDUCED,
+                notes="segment_sum message passing; fanout sampler for "
+                      "minibatch_lg")

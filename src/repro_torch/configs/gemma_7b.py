@@ -7,6 +7,7 @@ import dataclasses
 import math
 
 from ..models.transformer import LMConfig
+from .registry import ArchSpec
 
 CONFIG = LMConfig(
     name="gemma-7b", n_layers=28, d_model=3072, n_heads=16,
@@ -16,3 +17,8 @@ CONFIG = LMConfig(
 REDUCED = dataclasses.replace(
     CONFIG, n_layers=3, d_model=64, n_heads=4, n_kv_heads=4, head_dim=32,
     d_ff=256, vocab=512, emb_scale=8.0)
+
+SPEC = ArchSpec(id="gemma-7b", family="lm",
+                make_config=lambda shape=None: CONFIG,
+                make_reduced=lambda: REDUCED,
+                notes="GeGLU, head_dim=256, (1+w) norms")

@@ -8,6 +8,7 @@ global/NoPE. Totals ~400B params, ~17B active.
 import dataclasses
 
 from ..models.transformer import LMConfig
+from .registry import ArchSpec
 
 CONFIG = LMConfig(
     name="llama4-maverick-400b-a17b", n_layers=48, d_model=5120,
@@ -18,3 +19,8 @@ CONFIG = LMConfig(
 REDUCED = dataclasses.replace(
     CONFIG, n_layers=4, d_model=64, n_heads=8, n_kv_heads=2, head_dim=8,
     d_ff=128, vocab=512, n_experts=8, attn_chunk=8, global_every=2)
+
+SPEC = ArchSpec(id="llama4-maverick-400b-a17b", family="lm",
+                make_config=lambda shape=None: CONFIG,
+                make_reduced=lambda: REDUCED,
+                notes="MoE every 2nd layer + shared expert; iRoPE chunked")

@@ -7,6 +7,7 @@ top-1 on every layer + shared expert; iRoPE chunked attention. ~109B total,
 import dataclasses
 
 from ..models.transformer import LMConfig
+from .registry import ArchSpec
 
 CONFIG = LMConfig(
     name="llama4-scout-17b-a16e", n_layers=48, d_model=5120,
@@ -17,3 +18,8 @@ CONFIG = LMConfig(
 REDUCED = dataclasses.replace(
     CONFIG, n_layers=4, d_model=64, n_heads=8, n_kv_heads=2, head_dim=8,
     d_ff=128, vocab=512, n_experts=4, attn_chunk=8, global_every=2)
+
+SPEC = ArchSpec(id="llama4-scout-17b-a16e", family="lm",
+                make_config=lambda shape=None: CONFIG,
+                make_reduced=lambda: REDUCED,
+                notes="MoE 16e top-1 every layer + shared expert")

@@ -7,6 +7,7 @@ import dataclasses
 import math
 
 from ..models.transformer import LMConfig
+from .registry import ArchSpec
 
 CONFIG = LMConfig(
     name="minicpm-2b", n_layers=40, d_model=2304, n_heads=36,
@@ -16,3 +17,8 @@ CONFIG = LMConfig(
 REDUCED = dataclasses.replace(
     CONFIG, n_layers=3, d_model=72, n_heads=6, n_kv_heads=6, d_ff=128,
     vocab=512, resid_scale=1.4 / math.sqrt(3))
+
+SPEC = ArchSpec(id="minicpm-2b", family="lm",
+                make_config=lambda shape=None: CONFIG,
+                make_reduced=lambda: REDUCED,
+                notes="WSD schedule; mu-P emb/resid scaling")

@@ -6,6 +6,7 @@ q/k, rope_theta=1e6.
 import dataclasses
 
 from ..models.transformer import LMConfig
+from .registry import ArchSpec
 
 CONFIG = LMConfig(
     name="qwen3-1.7b", n_layers=28, d_model=2048, n_heads=16,
@@ -15,3 +16,8 @@ CONFIG = LMConfig(
 REDUCED = dataclasses.replace(
     CONFIG, n_layers=3, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
     vocab=512)
+
+SPEC = ArchSpec(id="qwen3-1.7b", family="lm",
+                make_config=lambda shape=None: CONFIG,
+                make_reduced=lambda: REDUCED,
+                notes="qk_norm, GQA")

@@ -1,5 +1,5 @@
-"""Input shapes per model family (the LM, GNN and recsys rows of
-``repro.configs.shapes``; the JAG rows come with the cells)."""
+"""Input shapes per model family and the JAG production cells (counterpart
+of ``repro.configs.shapes``, copied)."""
 
 LM_SHAPES = {
     "train_4k":    dict(kind="train",   seq=4096,    batch=256),
@@ -30,4 +30,14 @@ RECSYS_SHAPES = {
     "serve_bulk":     dict(kind="serve",     batch=262144),
     "retrieval_cand": dict(kind="retrieval", batch=1,
                            n_candidates=1_000_000),
+}
+
+JAG_SHAPES = {
+    # billion-scale shard-and-merge serving: 256 shards x 4.19M pts = 1.07B
+    "serve_1b": dict(kind="jag_serve", n_local=1 << 22, d=128, row_width=80,
+                     batch=4096, k=10, ls=128, max_iters=192,
+                     query_chunk=128, n_seeds=8),
+    # distributed per-shard batch insert (build path)
+    "build_1b": dict(kind="jag_build", n_local=1 << 22, d=128, degree=64,
+                     ex_slots=16, batch=128, ls_build=96, cand_pool=192),
 }

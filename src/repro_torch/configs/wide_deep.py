@@ -3,6 +3,7 @@ MLP 1024-512-256, concat interaction + wide linear branch."""
 import dataclasses
 
 from ..models.recsys import RecsysConfig
+from .registry import ArchSpec
 
 CONFIG = RecsysConfig(
     name="wide-deep", kind="wide_deep", n_sparse=40, embed_dim=32,
@@ -10,3 +11,8 @@ CONFIG = RecsysConfig(
 
 REDUCED = dataclasses.replace(CONFIG, total_vocab=4096,
                               mlp_dims=(64, 32), n_dense=4)
+
+SPEC = ArchSpec(id="wide-deep", family="recsys",
+                make_config=lambda shape=None: CONFIG,
+                make_reduced=lambda: REDUCED,
+                notes="wide linear + deep MLP")

@@ -30,6 +30,18 @@
 // go through a register-A wgmma with V into one f32 accumulator: an error
 // of about 2^-17 of p, at 1.5x the tensor-core work of a single bf16 P.
 //
+// The bf16-score variant (entry flash_attention_bf16, the LM's
+// attn_p_bf16 and attn_scores_bf16 knobs; src/repro/models/transformer.py
+// _attention_scan) is the same design with template flags that follow the
+// reference's rounding points. kMode 1 (attn_p_bf16): S and p in f32 as
+// above, l sums the f32 p, and P.V takes bf16(p) in one register-A wgmma
+// (no p_lo pass). kMode 2 (attn_scores_bf16): each consumer warpgroup
+// rescales its rows of Q in shared memory to bf16(q / bf16(sqrt(D))) once
+// they land; S is accumulated in f32 and rounded to bf16; the running max
+// m is kept in f32 in natural units; p = bf16(exp(bf16(s - bf16(m_safe))));
+// l sums the bf16 p in f32; P.V takes p as it is, in one wgmma. Either
+// variant's least time is 1.0x the flops bound, not the split's 1.5x.
+//
 // Bound on the H100: operations. 4*B*H*Tq*Tk*D flops (halved by the
 // causal mask) at 989 TFLOP/s bf16 dense; the split makes the least time
 // 1.5x that bound. q, k, v and out are read or written once each (an
@@ -65,6 +77,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "device_guard.cuh"
 
@@ -75,6 +88,15 @@ namespace {
 using namespace hopper;
 
 constexpr int kStages = 3;
+
+// what P.V reads: p split into two bf16 halves (the float32 contract),
+// bf16(p) of an f32 p (attn_p_bf16), or bf16 scores and p (attn_scores_bf16)
+constexpr int kSplitP = 0, kBf16P = 1, kBf16S = 2;
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
 
 template <int kD> struct Tiles;  // kv rows per tile, consumer warpgroups
 template <> struct Tiles<64> { static constexpr int kBK = 128, kWG = 2; };
@@ -311,13 +333,16 @@ __device__ __forceinline__ void split(float p0, float p1, uint32_t& hi,
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
-template <int kD>
+// scale_log2: 1/sqrt(D) * log2(e) (kMode 0, 1); q_div: bf16(sqrt(D)),
+// which divides Q in kMode 2
+template <int kD, int kMode>
 __global__ void __launch_bounds__(Layout<kD>::kThreads, 1)
 flash_attention_wgmma(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
                       __nv_bfloat16* __restrict__ out, int H, int G, int Tq,
-                      int Tk, int D, int causal, float scale_log2) {
+                      int Tk, int D, int causal, float scale_log2,
+                      float q_div) {
   using L = Layout<kD>;
   constexpr int kBK = L::kBK, kWG = L::kWG, kBQ = L::kBQ, kP = L::kP;
   extern __shared__ uint8_t smem_raw[];
@@ -378,7 +403,8 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tq,
     float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.0f, l_b = 0.0f;
     float cr_a = 0.0f, cr_b = 0.0f;
     float sc[kBK / 2];                         // S, then p, of one kv tile
-    uint32_t p_hi[kBK / 16][4], p_lo[kBK / 16][4];
+    constexpr bool kSplit = kMode == kSplitP;
+    uint32_t p_hi[kBK / 16][4], p_lo[kSplit ? kBK / 16 : 1][4];
 
     // S = Q K^T of the tile in stage s: D / 16 steps of k16, each inside
     // one 64-column panel; committed as one wgmma group
@@ -402,7 +428,7 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tq,
       for (int kk = 0; kk < kBK / 16; ++kk) {
         const uint64_t dv = sw128_desc(v_sm + kk * 2048, L::kKPanel, 1024);
         mma_rs<kD>(o, p_hi[kk], dv);
-        mma_rs<kD>(o, p_lo[kk], dv);
+        if constexpr (kSplit) mma_rs<kD>(o, p_lo[kk], dv);
       }
       wg_commit();
     };
@@ -414,6 +440,10 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tq,
     // warpgroup's first row.
     auto softmax = [&](int kt) {
       const int k0 = kt * kBK;
+      if constexpr (kMode == kBf16S) {
+#pragma unroll
+        for (int i = 0; i < kBK / 2; ++i) sc[i] = bf16r(sc[i]);
+      }
       if (k0 + kBK > Tk || (causal && k0 + kBK - 1 > q0 + 64 * wg)) {
 #pragma unroll
         for (int j = 0; j < kBK / 8; ++j) {
@@ -436,6 +466,32 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tq,
       for (int off = 1; off < 4; off <<= 1) {
         mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
         mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+      }
+      if constexpr (kMode == kBf16S) {
+        // bf16 scores (rounded by the caller), m in natural units
+        const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+        const float ms_a = isfinite(mn_a) ? mn_a : 0.0f;
+        const float ms_b = isfinite(mn_b) ? mn_b : 0.0f;
+        cr_a = isfinite(m_a) ? ex2((m_a - ms_a) * kLog2e) : 0.0f;
+        cr_b = isfinite(m_b) ? ex2((m_b - ms_b) * kLog2e) : 0.0f;
+        m_a = mn_a;
+        m_b = mn_b;
+        const float mb_a = bf16r(ms_a), mb_b = bf16r(ms_b);
+        float sum_a = 0.0f, sum_b = 0.0f;
+#pragma unroll
+        for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float& x = sc[4 * j + e];
+            const float mb = e < 2 ? mb_a : mb_b;
+            x = isfinite(x) ? bf16r(ex2(bf16r(x - mb) * kLog2e)) : 0.0f;
+            if (e < 2) sum_a += x;
+            else sum_b += x;
+          }
+        }
+        l_a = l_a * cr_a + sum_a;
+        l_b = l_b * cr_b + sum_b;
+        return;
       }
       const float mn_a = fmaxf(m_a, mx_a * scale_log2);
       const float mn_b = fmaxf(m_b, mx_b * scale_log2);
@@ -474,14 +530,39 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk)
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          split(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1], p_hi[kk][i],
-                p_lo[kk][i]);
+        for (int i = 0; i < 4; ++i) {
+          if constexpr (kSplit) {
+            split(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1], p_hi[kk][i],
+                  p_lo[kk][i]);
+          } else {
+            const __nv_bfloat162 h = __floats2bfloat162_rn(
+                sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
+            p_hi[kk][i] = *reinterpret_cast<const uint32_t*>(&h);
+          }
+        }
     };
 
     // Tile kt's scores go to the tensor cores together with tile kt-1's
     // P.V, and tile kt's softmax runs while that P.V is still in flight.
     mbar_wait(q_bar, 0);
+    if constexpr (kMode == kBf16S) {
+      // Q of this warpgroup's 64 rows -> bf16(q / bf16(sqrt(D))), in place
+      // (an elementwise map, so the swizzle does not matter); then make the
+      // writes visible to wgmma and wait for the warpgroup's threads
+      uint8_t* q_gen = smem_raw + (q_wg - smem_u32(smem_raw));
+#pragma unroll
+      for (int p = 0; p < kP; ++p) {
+        __nv_bfloat162* w =
+            reinterpret_cast<__nv_bfloat162*>(q_gen + p * L::kQPanel);
+        for (int i = t; i < 64 * 32; i += 128) {
+          const float2 f = __bfloat1622float2(w[i]);
+          w[i] = __floats2bfloat162_rn(__fdiv_rn(f.x, q_div),
+                                       __fdiv_rn(f.y, q_div));
+        }
+      }
+      fence_async_smem();
+      asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+    }
     mbar_wait(full(0), 0);
     wg_fence();
     issue_scores(0);
@@ -495,7 +576,7 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tq,
       pin(sc);
       pin(o);
       pin(p_hi);
-      pin(p_lo);
+      if constexpr (kSplit) pin(p_lo);
         wg_fence();
       issue_scores(s);
       issue_values(prev);
@@ -505,19 +586,19 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tq,
       wg_wait<0>();          // so is tile kt-1's P.V
       pin(o);
       pin(p_hi);
-      pin(p_lo);
+      if constexpr (kSplit) pin(p_lo);
       if (t == 0) mbar_arrive(empty(prev));
       rescale_and_split();
     }
     pin(o);
     pin(p_hi);
-    pin(p_lo);
+    if constexpr (kSplit) pin(p_lo);
     wg_fence();
     issue_values((n_kt - 1) % kStages);
     wg_wait<0>();
     pin(o);
     pin(p_hi);
-    pin(p_lo);
+    if constexpr (kSplit) pin(p_lo);
     if (t == 0) mbar_arrive(empty((n_kt - 1) % kStages));
 
 #pragma unroll
@@ -583,10 +664,10 @@ bool tensor_map(CUtensorMap* map, const void* base, int n_heads, int T,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int kD>
+template <int kD, int kMode>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int H, int Hkv, int Tq, int Tk, int D, int causal,
-           float scale_log2, cudaStream_t stream) {
+           float scale_log2, float q_div, cudaStream_t stream) {
   using L = Layout<kD>;
   CUtensorMap mq, mk, mv;
   if (!tensor_map(&mq, q, B * H, Tq, D, L::kBQ) ||
@@ -594,14 +675,35 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
       !tensor_map(&mv, v, B * Hkv, Tk, D, L::kBK))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_wgmma<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      L::kSmem);
+      flash_attention_wgmma<kD, kMode>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(B * H, (Tq + L::kBQ - 1) / L::kBQ);
-  flash_attention_wgmma<kD><<<grid, L::kThreads, L::kSmem, stream>>>(
+  flash_attention_wgmma<kD, kMode><<<grid, L::kThreads, L::kSmem, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(out), H, H / Hkv, Tq, Tk, D,
-      causal, scale_log2);
+      causal, scale_log2, q_div);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int kMode>
+int launch_width(const void* q, const void* k, const void* v, void* out,
+                 int B, int H, int Hkv, int Tq, int Tk, int D, int causal,
+                 float scale, cudaStream_t s) {
+  const float scale_log2 = static_cast<float>(scale * 1.4426950408889634);
+  // bf16(sqrt(D)), rounded to nearest even on the host
+  float q_div = sqrtf(static_cast<float>(D));
+  uint32_t u;
+  memcpy(&u, &q_div, 4);
+  u = (u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u;
+  memcpy(&q_div, &u, 4);
+  if (D <= 64)
+    return launch<64, kMode>(q, k, v, out, B, H, Hkv, Tq, Tk, D, causal,
+                             scale_log2, q_div, s);
+  if (D <= 128)
+    return launch<128, kMode>(q, k, v, out, B, H, Hkv, Tq, Tk, D, causal,
+                              scale_log2, q_div, s);
+  return launch<256, kMode>(q, k, v, out, B, H, Hkv, Tq, Tk, D, causal,
+                            scale_log2, q_div, s);
 }
 
 }  // namespace
@@ -618,9 +720,30 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   if (Tk == 0)  // no key: every row is acc / max(l, 1e-30) = 0
     return static_cast<int>(cudaMemsetAsync(
         out, 0, (size_t)B * H * Tq * D * sizeof(__nv_bfloat16), s));
-  const float scale_log2 = static_cast<float>(scale * 1.4426950408889634);
   if (D % 8 || D > 256) return static_cast<int>(cudaErrorInvalidValue);
-  if (D <= 64) return launch<64>(q, k, v, out, B, H, Hkv, Tq, Tk, D, causal, scale_log2, s);
-  if (D <= 128) return launch<128>(q, k, v, out, B, H, Hkv, Tq, Tk, D, causal, scale_log2, s);
-  return launch<256>(q, k, v, out, B, H, Hkv, Tq, Tk, D, causal, scale_log2, s);
+  return launch_width<kSplitP>(q, k, v, out, B, H, Hkv, Tq, Tk, D, causal,
+                               scale, s);
+}
+
+// The bf16-score variant: mode 1 = attn_p_bf16, 2 = attn_scores_bf16 (see
+// the top of the file); the same contract otherwise.
+extern "C" int flash_attention_bf16(const void* q, const void* k,
+                                    const void* v, void* out, int B, int H,
+                                    int Hkv, int Tq, int Tk, int D,
+                                    int causal, float scale, int mode,
+                                    int device, void* stream) {
+  if (B == 0 || H == 0 || Tq == 0) return 0;
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Tk == 0)
+    return static_cast<int>(cudaMemsetAsync(
+        out, 0, (size_t)B * H * Tq * D * sizeof(__nv_bfloat16), s));
+  if (D % 8 || D > 256 || (mode != kBf16P && mode != kBf16S))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (mode == kBf16P)
+    return launch_width<kBf16P>(q, k, v, out, B, H, Hkv, Tq, Tk, D, causal,
+                                scale, s);
+  return launch_width<kBf16S>(q, k, v, out, B, H, Hkv, Tq, Tk, D, causal,
+                              scale, s);
 }

@@ -24,23 +24,31 @@ from typing import Dict, Sequence
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("fused_expand", "gather_dist_tile", "bitset_dist", "gather_dist",
-           "l2dist", "flash_attention", "flash_attention_f32")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# every kernel entry, by the name its launches count under: (its source in
+# csrc/, its C function, its argtypes); a variant lives in the source of
+# the kernel it varies
 SIGNATURES = {
-    "fused_expand": ("fused_expand_f32", [_P] * 6 + [_I] * 6 + [_P]),
-    "gather_dist_tile": ("gather_dist_tile_f32", [_P] * 4 + [_I] * 5 + [_P]),
-    "bitset_dist": ("bitset_dist_u32", [_P] * 3 + [_I] * 5 + [_P]),
-    "gather_dist": ("gather_dist", [_P] * 4 + [_I] * 6 + [_P]),
-    "l2dist": ("l2dist", [_P] * 4 + [_I] * 5 + [_P]),
-    "flash_attention": ("flash_attention",
+    "fused_expand": ("fused_expand", "fused_expand_f32",
+                     [_P] * 6 + [_I] * 6 + [_P]),
+    "gather_dist_tile": ("gather_dist_tile", "gather_dist_tile_f32",
+                         [_P] * 4 + [_I] * 5 + [_P]),
+    "bitset_dist": ("bitset_dist", "bitset_dist_u32",
+                    [_P] * 3 + [_I] * 5 + [_P]),
+    "gather_dist": ("gather_dist", "gather_dist", [_P] * 4 + [_I] * 6 + [_P]),
+    "l2dist": ("l2dist", "l2dist", [_P] * 4 + [_I] * 5 + [_P]),
+    "flash_attention": ("flash_attention", "flash_attention",
                         [_P] * 4 + [_I] * 7 + [_F, _I, _P]),
-    "flash_attention_f32": ("flash_attention_f32",
+    "flash_attention_f32": ("flash_attention_f32", "flash_attention_f32",
                             [_P] * 5 + [_I] * 8 + [_F, _I, _P]),
+    "flash_attention_bf16": ("flash_attention", "flash_attention_bf16",
+                             [_P] * 4 + [_I] * 7 + [_F, _I, _I, _P]),
 }
+KERNELS = tuple(SIGNATURES)
+SOURCES = tuple(dict.fromkeys(src for src, _, _ in SIGNATURES.values()))
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 PTXAS_LOG: Dict[str, str] = {}
@@ -100,22 +108,25 @@ def build_all(names: Sequence[str] = SOURCES) -> Dict[str, Path]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded kernel library ``name``, built on first use."""
-    lib = _LIBS.get(name)
+    """The loaded library of kernel or source ``name``, built on first
+    use, with the argtypes of every entry it holds set."""
+    src = SIGNATURES[name][0]
+    lib = _LIBS.get(src)
     if lib is None:
-        path = build_all([name])[name]
+        path = build_all([src])[src]
         lib = ctypes.CDLL(str(path))
-        fn_name, argtypes = SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _LIBS[name] = lib
+        for s, fn_name, argtypes in SIGNATURES.values():
+            if s == src:
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+        _LIBS[src] = lib
     return lib
 
 
 def entry(name: str):
     """The C entry point of kernel ``name`` with its argtypes set."""
-    return getattr(library(name), SIGNATURES[name][0])
+    return getattr(library(name), SIGNATURES[name][1])
 
 
 def sass_count(name: str, opcode: str) -> int:

@@ -3,7 +3,12 @@
 Dispatch is by the device of the tensors: CPU tensors go to the plain
 PyTorch version in ``kernels/ref.py``; CUDA tensors launch the kernel (built
 with nvcc at first use, ``kernels/_build.py``) or raise. There is no
-fallback from the card to the plain version.
+fallback from the card to the plain version. Tensors on the ``meta``
+device (the dry run, ``launch/dryrun.py``, which checks shapes and dtypes
+without memory) take the plain version too, which computes nothing there;
+``flash_attention`` checks the shapes and returns an output of its shape
+and dtype instead, since its plain version's loop over key blocks would
+take the dry run's time.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on ``torch.cuda.current_stream()``
@@ -28,7 +33,7 @@ import torch
 from . import _build, ref
 
 # kernel name -> launches since the last reset_launches()
-LAUNCHES: Dict[str, int] = {name: 0 for name in _build.SOURCES}
+LAUNCHES: Dict[str, int] = {name: 0 for name in _build.KERNELS}
 
 
 def reset_launches() -> None:
@@ -47,7 +52,8 @@ def _on_card(*ts: torch.Tensor) -> bool:
             "gradient silently; differentiate attention through "
             "kernels.autograd.flash_attention, or call under torch.no_grad()")
     devs = {t.device for t in ts}
-    if all(d.type == "cpu" for d in devs):
+    if all(d.type == "cpu" for d in devs) or all(d.type == "meta"
+                                                 for d in devs):
         return False
     if len(devs) == 1 and next(iter(devs)).type == "cuda":
         return True
@@ -215,9 +221,18 @@ def l2dist(q: torch.Tensor, xb: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, scores_bf16: bool = False,
+                    p_bf16: bool = False) -> torch.Tensor:
     """Online-softmax attention with f32 accumulation (see
     ``ref.flash_attention``).
+
+    ``scores_bf16`` / ``p_bf16`` are the LM's ``attn_scores_bf16`` and
+    ``attn_p_bf16`` knobs: with either, the inputs are cast to bf16 (the
+    reference's ``.astype``) and the call launches the bf16-score variant
+    of the tensor-core kernel (``flash_attention_bf16``, in
+    ``csrc/flash_attention.cu``), with the reference's rounding points;
+    the output comes back in q's dtype. A width that kernel cannot take (D
+    not a multiple of 8) raises: there is no plain fallback.
 
     q [B, H, Tq, D], k/v [B, Hkv, Tk, D], all f32 or all bf16, D <= 256
     -> [B, H, Tq, D] in q's dtype. Query head h reads kv head h // (H/Hkv).
@@ -240,14 +255,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kernel on the card, the plain version on the CPU), and its backward
     differentiates ``ref.flash_attention`` recomputed from q, k and v.
     """
-    if not _on_card(q, k, v):
-        return ref.flash_attention(q, k, v, causal=causal)
+    on_card = _on_card(q, k, v)
+    if not on_card and q.device.type != "meta":
+        return ref.flash_attention(q, k, v, causal=causal,
+                                   scores_bf16=scores_bf16, p_bf16=p_bf16)
     B, H, Tq, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     if causal and Tq != Tk:
         raise ValueError(f"causal attention needs Tq == Tk, got {Tq}, {Tk}")
     if H % Hkv:
         raise ValueError(f"{H} query heads are not a multiple of {Hkv}")
+    if not on_card:                        # meta: shapes and dtypes only
+        if k.shape != v.shape or k.shape[::3] != q.shape[::3]:
+            raise ValueError(f"k {tuple(k.shape)}, v {tuple(v.shape)} do "
+                             f"not fit q {tuple(q.shape)}")
+        return torch.empty_like(q)
     if D > 256:
         raise ValueError(f"head_dim {D} > 256, the kernels' widest tile")
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -255,15 +277,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _expect(q, "q", q.dtype, (B, H, Tq, D))
     _expect(k, "k", q.dtype, (B, Hkv, Tk, D))
     _expect(v, "v", q.dtype, (B, Hkv, Tk, D))
+    knobbed = scores_bf16 or p_bf16
+    if knobbed:
+        if D % 8:
+            raise ValueError(f"head_dim {D}: the bf16-score kernel takes a "
+                             "multiple of 8")
+        out_dtype = q.dtype
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
     out = torch.empty_like(q)
     if not out.numel():
-        return out
+        return out.to(out_dtype) if knobbed else out
     scale = 1.0 / math.sqrt(D)
     if q.dtype == torch.bfloat16 and D % 8 == 0:
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.data_ptr() % 16:
                 raise ValueError(f"{name}: the tensor-core kernel's TMA "
                                  "copies need a 16-byte aligned tensor")
+        if knobbed:
+            _launch("flash_attention_bf16", q, k, v, out, B, H, Hkv, Tq, Tk,
+                    D, int(causal), scale, 2 if scores_bf16 else 1)
+            return out.to(out_dtype)
         _launch("flash_attention", q, k, v, out, B, H, Hkv, Tq, Tk, D,
                 int(causal), scale)
     else:

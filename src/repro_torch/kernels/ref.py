@@ -106,15 +106,30 @@ def l2dist(q: torch.Tensor, xb: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, scores_bf16: bool = False,
+                    p_bf16: bool = False) -> torch.Tensor:
     """Online-softmax attention with the TPU kernel's arithmetic.
 
     q [B, H, Tq, D], k/v [B, Hkv, Tk, D] (H a multiple of Hkv; query head h
     reads kv head h // (H / Hkv)), any float dtype -> q's dtype. Everything
     runs in float32: q is scaled by 1/sqrt(D) before the product, keys come
-    in blocks of 128 with a running max and sum, the causal mask is
-    ``row >= col`` and the same -inf guards keep fully masked rows at 0.
-    Causal attention needs Tq == Tk (the mask has no offset).
+    in blocks of the bf16 kernel's key tile (128 keys, 64 at D > 128) with
+    a running max and sum, the causal mask is ``row >= col`` and the same
+    -inf guards keep fully masked rows at 0. Causal attention needs Tq ==
+    Tk (the mask has no offset).
+
+    The LM's bf16 score knobs follow the reference's rounding points
+    (``repro.models.transformer._attention_scan``), on bf16 copies of the
+    inputs. ``p_bf16``: S and p in float32, l sums the float32 p, and P.V
+    takes bf16(p) with float32 accumulation. ``scores_bf16``: q is divided
+    by bf16(sqrt(D)) in bf16, S is accumulated in float32 and rounded to
+    bf16, m stays float32, p = exp(s - bf16(m_safe)) in bf16 (each op
+    rounded), l sums the bf16 p in float32 and P.V takes p as it is. The
+    reference rounds p against the running max of its ``kv_block`` blocks;
+    here against that of the key blocks above, as the kernel does. A
+    knobbed call's output is rounded to bf16, then cast to q's dtype (the
+    reference keeps a float32 model's output in float32; the knobs serve
+    bf16 models).
     """
     B, H, Tq, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
@@ -123,8 +138,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if causal and Tq != Tk:
         raise ValueError(f"causal attention needs Tq == Tk, got {Tq}, {Tk}")
     G = H // Hkv
-    block_k = 128
-    qf = (q.float() * (1.0 / math.sqrt(D))).reshape(B, Hkv, G * Tq, D)
+    block_k = 128 if D <= 128 else 64
+    bf16 = torch.bfloat16
+    knobbed = scores_bf16 or p_bf16
+    if knobbed:
+        k, v = k.to(bf16), v.to(bf16)
+    if scores_bf16:
+        qs = q.to(bf16) / torch.tensor(math.sqrt(D), dtype=bf16)
+        qf = qs.float().reshape(B, Hkv, G * Tq, D)
+    else:
+        qin = q.to(bf16) if knobbed else q
+        qf = (qin.float() * (1.0 / math.sqrt(D))).reshape(B, Hkv, G * Tq, D)
     rows = torch.arange(Tq, device=q.device).repeat(G)[:, None]
     m = torch.full((B, Hkv, G * Tq, 1), -math.inf, device=q.device)
     l = torch.zeros((B, Hkv, G * Tq, 1), device=q.device)
@@ -133,16 +157,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         kb = k[:, :, k0:k0 + block_k].float()
         vb = v[:, :, k0:k0 + block_k].float()
         s = qf @ kb.transpose(-1, -2)                 # [B, Hkv, G*Tq, bk]
+        if scores_bf16:
+            s = s.to(bf16)
         if causal:
             cols = torch.arange(k0, k0 + kb.shape[2], device=q.device)
             s = torch.where(rows >= cols[None, :], s, -math.inf)
-        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True).float())
         m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
-        p = torch.exp(s - m_safe)
+        p = torch.exp(s - m_safe.to(s.dtype))
         p = torch.where(torch.isfinite(s), p, 0.0)
         corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
-        l = l * corr + torch.sum(p, dim=-1, keepdim=True)
-        acc = acc * corr + p @ vb
+        l = l * corr + torch.sum(p.float(), dim=-1, keepdim=True)
+        pv = p.to(bf16).float() if knobbed else p
+        acc = acc * corr + pv @ vb
         m = m_new
     out = acc / torch.clamp_min(l, 1e-30)
+    if knobbed:             # the bf16 copies' output, as the kernel writes
+        out = out.to(bf16)
     return out.reshape(B, H, Tq, D).to(q.dtype)

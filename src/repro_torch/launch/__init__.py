@@ -1,5 +1,5 @@
 """Launch tooling for the port on one NVIDIA H100 (counterpart of
-``repro.launch``'s measurement half).
+``repro.launch``).
 
 * :mod:`repro_torch.launch.roofline` — the card's constants (``HW``), the
   time bound of a kernel's work (``bound_ms``, ``split_bound_ms``,
@@ -11,6 +11,17 @@
   a ``torch.profiler`` run (kernels by name, device busy share, idle
   gaps).
 
-The reference's ``dryrun``, ``perf`` and ``train`` lower and compile
-training cells on a TPU mesh; they wait for the training slice.
+* :mod:`repro_torch.launch.mesh` — the production meshes as records (axis
+  names and sizes) for the rules' accounting, the local cards as a mesh,
+  and ``HW`` with the card's memory.
+* :mod:`repro_torch.launch.dryrun` — every (arch x shape) cell on both
+  production meshes: its step run once on the ``meta`` device (shapes and
+  dtypes at full size, no memory), its flops bound and its per-card state
+  bytes under the sharding rules (the reference lowers and compiles each
+  cell instead).
+* :mod:`repro_torch.launch.perf` — the perf harness's cells on the card
+  (``jag_serve``, ``qwen3_train``, ``din_train``) and ``maverick_train``'s
+  dry-run rows.
+* :mod:`repro_torch.launch.train` — the fault-tolerant training launcher
+  (resume from checkpoints, straggler log, metrics JSONL).
 """

@@ -18,10 +18,10 @@ kernel that does it. Kernels that run float32 products as split TF32
 flop at the TF32 rate; ``split_bound_ms`` also gives the same flops at the
 FP32 rate.
 
-The reference's ``launch/mesh.py`` has no counterpart: the port's mesh is a
-list of devices (``distributed/sharding.py``), and the reference's
-production meshes serve the training cells, which wait for the training
-slice.
+``Roofline`` records one piece of work against that bound; ``format_row``
+prints it on one line and ``to_dict`` keeps it as JSON (the dry run's and
+the perf harness's rows, ``launch/dryrun.py``, ``launch/perf.py``). The
+card's memory and the production meshes are in ``launch/mesh.py``.
 """
 from __future__ import annotations
 
@@ -42,7 +42,8 @@ HW = dict(  # NVIDIA H100 SXM, data sheet, dense rates, at its 700 W limit
 TF32_PASSES = HW["tf32_passes"]
 
 KERNELS = ("fused_expand", "gather_dist_tile", "bitset_dist", "gather_dist",
-           "l2dist", "flash_attention", "flash_attention_f32")
+           "l2dist", "flash_attention", "flash_attention_f32",
+           "flash_attention_bf16")
 
 
 def popc_ops_per_s(sms: int, sm_clock_mhz: float) -> float:
@@ -78,6 +79,7 @@ def kernel_work(name: str, **shape) -> Tuple[float, float, float]:
     bitset_dist(B, N, W, popc_rate) popcounts at the card's popcount rate
     l2dist(B, N, d)                 split TF32 (3 passes at the TF32 rate)
     flash_attention(B, H, Hkv, T, D)      causal, bf16
+    flash_attention_bf16(B, H, Hkv, T, D) causal, bf16 (the score knobs)
     flash_attention_f32(B, H, Hkv, T, D)  causal, split TF32
 
     Bytes count each input row read once and each output written once:
@@ -107,7 +109,8 @@ def kernel_work(name: str, **shape) -> Tuple[float, float, float]:
         B, N, d = s["B"], s["N"], s["d"]
         return ((B * d + N * d + B * N) * 4, TF32_PASSES * 2 * B * N * d,
                 HW["tf32_flops"])
-    if name in ("flash_attention", "flash_attention_f32"):
+    if name in ("flash_attention", "flash_attention_f32",
+                "flash_attention_bf16"):
         B, H, Hkv, T, D = s["B"], s["H"], s["Hkv"], s["T"], s["D"]
         f32 = name == "flash_attention_f32"
         it = 4 if f32 else 2
@@ -155,6 +158,21 @@ class Roofline:
         if not self.measured_s:
             return None
         return self.bound_s / self.measured_s
+
+    def to_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        d.update(bound_s=self.bound_s, bound_share=self.bound_share)
+        return d
+
+
+def format_row(r: Roofline) -> str:
+    """One line: the work, the two terms, the bound and, when measured,
+    the time and its share of the bound."""
+    meas = (f" measured={r.measured_s * 1e3:.3f}ms "
+            f"share={r.bound_share:.4f}" if r.measured_s else "")
+    return (f"{r.name:40s} flops={r.flops:.4g} bytes={r.bytes:.4g} "
+            f"comp={r.t_comp * 1e3:.3f}ms mem={r.t_mem * 1e3:.3f}ms "
+            f"-> {r.bottleneck}{meas}")
 
 
 def analyze(name: str, *, n_bytes: float, n_ops: float, rate: float,

@@ -63,6 +63,13 @@ def init_params(cfg: GCNConfig, generator: torch.Generator,
     return GCN(cfg, resolve_device(device), generator).requires_grad_(False)
 
 
+def param_specs(cfg: GCNConfig) -> Dict[str, Tuple[str, ...]]:
+    """Each parameter name of ``GCN(cfg)`` -> the reference's logical axes
+    (kernels ("feat", "feat"), biases ("feat",): replicated)."""
+    return {name: ("feat", "feat") if name.endswith(".w") else ("feat",)
+            for name, _ in GCN(cfg, torch.device("meta")).named_parameters()}
+
+
 def params_from_jax(cfg: GCNConfig, tree, device=None) -> GCN:
     """The reference's parameter tree (``{"layers": [{"w", "b"}, ...]}`` of
     numpy arrays) as a ``GCN``, values copied as they are."""

@@ -119,9 +119,11 @@ def mlp_stack(dims: Sequence[int], generator: Optional[torch.Generator],
 def mlp_apply(tower: nn.ModuleList, x: torch.Tensor,
               final_act: bool = False) -> torch.Tensor:
     """x @ w + b through the tower, relu between layers (and after the
-    last with ``final_act``)."""
+    last with ``final_act``); x promotes to the kernels' dtype first, as
+    JAX promotes a bf16 input against float32 weights."""
     for i, layer in enumerate(tower):
-        x = x @ layer.w + layer.b
+        x = x.to(torch.promote_types(x.dtype, layer.w.dtype)) @ layer.w \
+            + layer.b
         if i < len(tower) - 1 or final_act:
             x = torch.relu(x)
     return x

@@ -18,8 +18,10 @@ it outside any kernel: ``embedding_bag``'s ``jax.ops.segment_sum``
 becomes ``index_add`` (float atomics on the card, so its sums are
 allclose there, not bitwise), ``jax.lax.top_k`` becomes ``torch.topk``
 (the reference breaks ties toward the lower index; the card's order of
-equal scores is unspecified). The reference's logical-axis constraints
-have no counterpart until the port's sharding rules.
+equal scores is unspecified). ``table_dtype`` stores the table in another
+dtype (bf16 halves its bytes); its rows promote to ``dtype`` where they
+meet the towers, as the reference's do. ``param_specs`` gives the
+reference's logical axes of each parameter.
 """
 from __future__ import annotations
 
@@ -46,6 +48,8 @@ class RecsysConfig:
     seq_len: int = 100                          # DIN behaviour sequence
     n_dense: int = 13                           # dense (numeric) features
     dtype: Any = torch.float32
+    table_dtype: Any = None                     # None -> dtype; bf16 halves
+                                                # the table's bytes
 
     def vocabs(self) -> Tuple[int, ...]:
         """Per-field vocab: a Criteo-like power-law split of
@@ -125,7 +129,7 @@ class Recsys(nn.Module):
         super().__init__()
         total, dt = sum(cfg.vocabs()), cfg.dtype
         self.table = nn.Parameter(torch.empty(
-            total, cfg.embed_dim, dtype=dt,
+            total, cfg.embed_dim, dtype=cfg.table_dtype or dt,
             device=device))
         if cfg.kind in ("fm", "deepfm", "wide_deep"):
             self.wide = nn.Parameter(torch.empty(total, dtype=dt,
@@ -165,6 +169,20 @@ def init_params(cfg: RecsysConfig, generator: torch.Generator,
     return model.requires_grad_(False)
 
 
+def param_specs(cfg: RecsysConfig) -> Dict[str, Tuple[str, ...]]:
+    """Each parameter name of ``Recsys(cfg)`` -> the reference's logical
+    axes: the table and ``wide`` by rows, the towers' kernels
+    ("mlp_in", "mlp_hidden") and biases ("mlp_hidden",)."""
+    out = {}
+    for name, _ in Recsys(cfg, torch.device("meta")).named_parameters():
+        key = name.rsplit(".", 1)[-1]
+        out[name] = {"table": ("table_rows", "table_dim"),
+                     "wide": ("table_rows",), "bias": (),
+                     "w": ("mlp_in", "mlp_hidden"),
+                     "b": ("mlp_hidden",)}[key]
+    return out
+
+
 def params_from_jax(cfg: RecsysConfig, tree, device=None) -> Recsys:
     """The reference's parameter tree (``jax.tree.map(np.asarray,
     init_params(cfg, key)[0])``) as a ``Recsys``, values copied as they
@@ -198,7 +216,7 @@ def din_attention(hist: torch.Tensor, target: torch.Tensor,
     if mask is not None:
         w = torch.where(mask, w, -1e30)
     w = torch.softmax(w, dim=-1)
-    return torch.einsum("bt,btd->bd", w, hist)
+    return torch.einsum("bt,btd->bd", w, hist.to(w.dtype))
 
 
 # ---------------------------------------------------------------------------

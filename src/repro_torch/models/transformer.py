@@ -66,11 +66,19 @@ copies, so a dropped token (written to the extra row that is cut off,
 and given a zero output row) gets exactly 0 from the routed experts; the
 shared expert, the residual and the router's aux loss still reach it.
 
-What this port cannot run raises ``NotImplementedError``: the bf16 score
-knobs everywhere. ``LMConfig`` has no fields for the
-reference's XLA lowering knobs (``kv_block``, ``scan_layers``,
-``unroll_kv``; the attention's key block changes only the float32
-rounding) or ``logits_bf16``.
+The reference's bf16 knobs: ``attn_p_bf16`` and ``attn_scores_bf16``
+take prefill's and forward's attention through the bf16-score variant of
+the kernel (``ops.flash_attention(..., p_bf16=, scores_bf16=)``, with the
+reference's rounding points; decode's two-pool attention ignores them, as
+the reference's ``_block_decode`` does), and ``logits_bf16`` rounds
+``forward``'s tied-embedding logits to bf16 (the loss keeps its float32
+logsumexp). ``LMConfig`` has no fields for the reference's XLA lowering
+knobs (``kv_block``, ``scan_layers``, ``unroll_kv``; the attention's key
+block changes only the rounding).
+
+``param_specs(cfg)`` gives each parameter name the reference's logical
+axes (``repro.models.transformer.init_params``'s spec tree) without the
+stacked ``"layers"`` axis, for the rules of ``distributed.sharding``.
 """
 from __future__ import annotations
 
@@ -118,8 +126,9 @@ class LMConfig:
     dtype: Any = torch.bfloat16
     param_dtype: Any = torch.float32
     vocab_pad: int = 128
-    attn_p_bf16: bool = False         # bf16 score knobs: a later slice
-    attn_scores_bf16: bool = False
+    attn_p_bf16: bool = False         # softmax probs in bf16 for P.V
+    attn_scores_bf16: bool = False    # whole score pipeline bf16 (m/l fp32)
+    logits_bf16: bool = False         # bf16 logits (CE keeps fp32 logsumexp)
     remat_policy: str = "full"        # "full" | "dots" (keep matmul outputs)
 
     @property
@@ -162,12 +171,7 @@ class LMConfig:
 
 
 def check_supported(cfg: LMConfig) -> None:
-    """Raise NotImplementedError for what this slice of the port lacks."""
-    if cfg.attn_p_bf16 or cfg.attn_scores_bf16:
-        raise NotImplementedError(
-            f"{cfg.name}: the flash-attention kernel computes scores and "
-            "probabilities in float32; the bf16 score knobs come with a "
-            "later slice of the port")
+    """Raise ValueError for a setting the model does not know."""
     if cfg.act not in ("silu", "gelu"):
         raise ValueError(f"act must be 'silu' or 'gelu', got {cfg.act!r}")
     if cfg.remat_policy not in ("full", "dots"):
@@ -299,6 +303,31 @@ def opt_state_from_jax(cfg: LMConfig, state, device=None):
     step = torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
                         device=dev)
     return AdamWState(step, named(state.m), named(state.v))
+
+
+_SPECS = {
+    "embed": ("vocab", "embed"), "final_norm": ("norm",),
+    "ln1": ("norm",), "ln2": ("norm",),
+    "wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+    "wv": ("embed", "kv_heads"), "wo": ("heads", "embed"),
+    "gate": ("embed", "mlp"), "up": ("embed", "mlp"),
+    "down": ("mlp", "embed"),
+    "qnorm": ("head_dim",), "knorm": ("head_dim",),
+    # "expert_mlp" (not "mlp"): the model axis already holds the experts
+    "router": ("embed", "experts"),
+    "e_gate": ("experts", "embed", "expert_mlp"),
+    "e_up": ("experts", "embed", "expert_mlp"),
+    "e_down": ("experts", "expert_mlp", "embed"),
+}
+
+
+def param_specs(cfg: LMConfig) -> Dict[str, Tuple[str, ...]]:
+    """Each parameter name of ``LM(cfg)`` -> its logical axes: the
+    reference's spec tree without the leading ``"layers"`` axis of its
+    stacked [L, ...] leaves (bound to no mesh axis), since the port keeps
+    one tensor a layer."""
+    return {name: _SPECS[name.rsplit(".", 1)[-1]]
+            for name, _ in LM(cfg, torch.device("meta")).named_parameters()}
 
 
 def cast_matrices(params: LM, dtype: torch.dtype) -> LM:
@@ -458,7 +487,9 @@ def _attention(cfg: LMConfig, impl, q: torch.Tensor, k: torch.Tensor,
     def call(q, k, v):
         o = impl.flash_attention(q.transpose(1, 2).contiguous(),
                                  k.transpose(1, 2).contiguous(),
-                                 v.transpose(1, 2).contiguous(), causal=True)
+                                 v.transpose(1, 2).contiguous(), causal=True,
+                                 scores_bf16=cfg.attn_scores_bf16,
+                                 p_bf16=cfg.attn_p_bf16)
         return o.transpose(1, 2).reshape(q.shape[0], q.shape[1], H * Dh)
 
     if is_global or not C or T <= C:
@@ -589,7 +620,10 @@ def forward(cfg: LMConfig, params: LM, tokens: torch.Tensor,
     for i, lw in enumerate(params.layers):
         x, a = _layer(cfg, lw, i, x, pos, impl, remat)
         aux = aux + a
-    return _logits(cfg, params, x), aux
+    logits = _logits(cfg, params, x)
+    if cfg.logits_bf16:
+        logits = logits.to(torch.bfloat16)
+    return logits, aux
 
 
 def loss_fn(cfg: LMConfig, params: LM, batch,

@@ -12,9 +12,9 @@ does (not torch's habit of sparing the norms).
 
 The reference returns new trees; ``apply_updates`` here updates the
 parameters and ``m`` and ``v`` in place, one parameter at a time (the
-temporaries of one leaf, not of the whole model), and returns them. The
-reference's ``opt_specs`` (logical sharding specs) waits for the port's
-sharding rules.
+temporaries of one leaf, not of the whole model), and returns them.
+``opt_specs`` gives the state's logical axes: ``m`` and ``v`` mirror the
+parameters' (ZeRO sharding), the step has none.
 """
 from __future__ import annotations
 
@@ -131,3 +131,9 @@ def apply_updates(cfg: OptConfig, params: Params,
         w.copy_(w.float() - lr * delta)
     return params, AdamWState(step, state.m, state.v), {
         "lr": lr, "grad_norm": gnorm}
+
+
+def opt_specs(param_specs: Mapping[str, Tuple]) -> AdamWState:
+    """The optimizer state's logical specs: ``m`` and ``v`` mirror the
+    parameters' (ZeRO sharding), the step is a scalar (``()``)."""
+    return AdamWState((), dict(param_specs), dict(param_specs))

@@ -678,7 +678,7 @@ def test_roofline_split_and_lm_flops():
     assert rl.bottleneck == "memory" and rl.bound_share is None
     assert math.isclose(rl.bound_s, 1e-3) and rl.t_comp < rl.t_mem
     from repro_torch import configs
-    cfg = configs.get("qwen3-1.7b").CONFIG
+    cfg = configs.get("qwen3-1.7b").make_config()
     T = 4096
     mm = cfg.param_count() - cfg.padded_vocab * cfg.d_model \
         - cfg.n_layers * 2 * cfg.d_model - cfg.d_model

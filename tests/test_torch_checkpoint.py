@@ -189,7 +189,7 @@ def test_resumed_training_equals_straight_run_bitwise(tmp_path):
     """k steps, a checkpoint, a fresh model and state restored from it,
     then n - k steps: every parameter and moment equals n straight steps
     bit for bit, and the data order is the same (lm_batch per step)."""
-    cfg = configs.get("qwen3-1.7b").REDUCED
+    cfg = configs.get("qwen3-1.7b").make_reduced()
     n, k = 4, 2
     ocfg = OptConfig(warmup_steps=1, total_steps=n)
     step = make_train_step(lambda p, b: TT.loss_fn(cfg, p, b), ocfg, accum=2)

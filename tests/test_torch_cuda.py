@@ -16,6 +16,10 @@ products, amplified by exp); in bf16
 both outputs are float32 values rounded once, so they may differ by one
 bf16 step, 2^-7 of the value, plus 1e-5: the tensor-core kernel rounds p
 to bf16 as p_hi + p_lo, about 2^-17 of p (``test_torch_kernels.py``).
+Its bf16-score variant rounds S and p where its plain version does, so
+it is held element by element to one bf16 step, with room for the rare
+rounding point that the two float32 sum orders put on either side
+(``_bf16_variant_ok``).
 The reduced LMs' prefill with the kernel (qwen3, and llama4 scout with its
 chunked layers split into two launches) agrees with the plain attention
 within 1e-4 (float32) and 2^-6 (bf16) of its largest logit, as
@@ -481,6 +485,57 @@ def test_cuda_flash_attention_matches_plain(sm90, dtype, D, B, H, Hkv, Tq,
     _check_flash(q, k, v, causal)
 
 
+def _bf16_variant_ok(got, want) -> bool:
+    """chip_smoke.py's gate of the bf16-score variant against its plain
+    version (``bf16_variant_gate``): every output within one bf16 step
+    (2^-7 of the value) plus 2^-6, where a score or p that the two float32
+    sum orders round to either side of a bf16 rounding point moves its row;
+    at most 2^-9 of the outputs past one step plus 1e-5."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    step = 2.0 ** -7 * want.abs()
+    return (bool(torch.isfinite(got).all())
+            and float((err - step).max()) <= 2.0 ** -6
+            and float((err > step + 1e-5).float().mean()) <= 2.0 ** -9)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("knob", ["p_bf16", "scores_bf16"])
+@pytest.mark.parametrize("D,B,H,Hkv,Tq,Tk,causal", [
+    (64, 1, 2, 1, 40, 40, True), (128, 2, 4, 2, 300, 300, True),
+    (256, 1, 2, 2, 200, 200, True), (32, 1, 3, 1, 129, 129, True),
+    (128, 1, 2, 1, 70, 200, False), (128, 2, 16, 8, 1024, 1024, True)])
+def test_cuda_flash_attention_bf16_variant_matches_plain(
+        sm90, knob, D, B, H, Hkv, Tq, Tk, causal):
+    """The bf16-score variant (``flash_attention_bf16``, the LM's
+    attn_p_bf16 / attn_scores_bf16) against its plain version with the
+    same rounding points: one launch of the variant and nothing else,
+    within ``_bf16_variant_ok``, which the split kernel (knobs ignored,
+    p kept to 2^-17) fails on the same inputs; float32 inputs are cast to
+    bf16 first, so they give the same values."""
+    g = torch.Generator(device=sm90)
+    g.manual_seed(D + Tq)
+    q = torch.randn((B, H, Tq, D), generator=g, device=sm90).bfloat16()
+    k = torch.randn((B, Hkv, Tk, D), generator=g, device=sm90).bfloat16()
+    v = torch.randn((B, Hkv, Tk, D), generator=g, device=sm90).bfloat16()
+    flags = {knob: True}
+    before = dict(ops.LAUNCHES)
+    got = ops.flash_attention(q, k, v, causal=causal, **flags)
+    moved = {n: ops.LAUNCHES[n] - before[n] for n in before}
+    assert moved == {n: int(n == "flash_attention_bf16") for n in before}
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    want = ref.flash_attention(q, k, v, causal=causal, **flags)
+    assert _bf16_variant_ok(got, want)
+    assert not _bf16_variant_ok(ops.flash_attention(q, k, v, causal=causal),
+                                want)
+    got32 = ops.flash_attention(q.float(), k.float(), v.float(),
+                                causal=causal, **flags)
+    assert got32.dtype == torch.float32 and torch.equal(got32, got.float())
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ops.flash_attention(q[..., :12].contiguous(), k[..., :12].contiguous(),
+                            v[..., :12].contiguous(), causal=causal, **flags)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("D", [16, 256])
 @pytest.mark.parametrize("B,H,Hkv", [(1, 65537, 65537), (3, 21846, 10923)])
@@ -516,7 +571,7 @@ def test_cuda_flash_attention_non_finite_row_is_zero(sm90, dtype, D):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_reduced_prefill_kernel_matches_plain(sm90, dtype):
-    cfg = configs.get("qwen3-1.7b").REDUCED
+    cfg = configs.get("qwen3-1.7b").make_reduced()
     cfg = dataclasses.replace(cfg, dtype=dtype)
     params = TT.init_params(cfg, torch.Generator(device=sm90).manual_seed(0),
                             device=sm90)
@@ -540,7 +595,7 @@ def test_cuda_reduced_llama4_prefill_kernel_matches_plain(sm90, dtype):
     100 tokens launches the kernel twice a chunked layer (the 12 whole
     chunks, then the tail of 4) and once a global one, and agrees with the
     plain attention within ``test_torch_lm.py``'s tolerances."""
-    cfg = configs.get("llama4-scout-17b-a16e").REDUCED
+    cfg = configs.get("llama4-scout-17b-a16e").make_reduced()
     cfg = dataclasses.replace(cfg, dtype=dtype)
     params = TT.init_params(cfg, torch.Generator(device=sm90).manual_seed(0),
                             device=sm90)
@@ -670,8 +725,9 @@ def test_cuda_sharded_transfers_on_distinct_cards(sm90):
 
 
 def _seven_launches(dev, gen):
-    """One tiny call of each of the seven C entries on ``dev``, as
-    (kernel name, kernel call, plain call, check of the two outputs)."""
+    """One tiny call of each C entry on ``dev`` (the seven kernels and the
+    bf16-score variant), as (kernel name, kernel call, check of the two
+    outputs)."""
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
@@ -712,6 +768,9 @@ def _seven_launches(dev, gen):
         ("gather_dist", lambda m: m.gather_dist(x, ids, q), close(1e-5)),
         ("l2dist", lambda m: m.l2dist(q, x), close(1e-5)),
         ("flash_attention", lambda m: m.flash_attention(*fb), flash_bf16),
+        ("flash_attention_bf16",
+         lambda m: m.flash_attention(*fb, scores_bf16=True),
+         _bf16_variant_ok),
         ("flash_attention_f32", lambda m: m.flash_attention(fq, fk, fv),
          close(1e-4)),
     ]
@@ -719,9 +778,10 @@ def _seven_launches(dev, gen):
 
 @pytest.mark.gpu
 def test_cuda_launch_on_another_card_keeps_the_current_device(sm90):
-    """F10: with card 0 current, each of the seven C entries launched on
-    cuda:1 leaves card 0 current (so the next ``device="cuda"``
-    allocation stays on card 0) and agrees with its plain version."""
+    """F10: with card 0 current, each of the eight C entries (the seven
+    kernels and the bf16-score variant) launched on cuda:1 leaves card 0
+    current (so the next ``device="cuda"`` allocation stays on card 0) and
+    agrees with its plain version."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two or more cards")
     torch.cuda.set_device(0)
@@ -745,7 +805,7 @@ def _train_pair(sm90, dtype, accum=1):
     from repro_torch.data.pipelines import lm_batch
     from repro_torch.kernels import autograd
     from repro_torch.train import accumulate_grads
-    cfg = dataclasses.replace(configs.get("qwen3-1.7b").REDUCED, dtype=dtype)
+    cfg = dataclasses.replace(configs.get("qwen3-1.7b").make_reduced(), dtype=dtype)
     params = TT.init_params(cfg, torch.Generator(device=sm90).manual_seed(0),
                             device=sm90).requires_grad_(True)
     batch = lm_batch(0, 2 * accum, 100, cfg.vocab, seed=1)
@@ -791,7 +851,7 @@ def test_cuda_train_steps_and_checkpoint_round_trip(sm90, tmp_path):
     from repro_torch.checkpoint import load_pytree, save_pytree
     from repro_torch.data.pipelines import lm_batch
     from repro_torch.train import OptConfig, init_state, make_train_step
-    cfg = configs.get("qwen3-1.7b").REDUCED
+    cfg = configs.get("qwen3-1.7b").make_reduced()
     params = TT.init_params(cfg, torch.Generator(device=sm90).manual_seed(0),
                             device=sm90).requires_grad_(True)
     state = init_state(params)
@@ -882,7 +942,7 @@ def test_cuda_reduced_llama4_training_step_matches_cpu(sm90):
     against the CPU's plain path: every routing equal, metrics within the
     tolerance, parameters within 0.05 of the summed lr."""
     from repro_torch.data.pipelines import lm_batch
-    cfg = dataclasses.replace(configs.get("llama4-scout-17b-a16e").REDUCED,
+    cfg = dataclasses.replace(configs.get("llama4-scout-17b-a16e").make_reduced(),
                               dtype=torch.float32)
     params = TT.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     batches = [lm_batch(s, 4, 20, cfg.vocab, seed=1) for s in range(2)]
@@ -918,7 +978,7 @@ def test_cuda_moe_backward_gives_dropped_tokens_zero(sm90, dtype):
     and more of the tokens land on the dropped row, written in an order
     the card does not fix; their routed output and their gradient from it
     are exactly 0, and every kept token gets a gradient."""
-    cfg = dataclasses.replace(configs.get("llama4-scout-17b-a16e").REDUCED,
+    cfg = dataclasses.replace(configs.get("llama4-scout-17b-a16e").make_reduced(),
                               dtype=dtype, capacity_factor=0.5)
     params = TT.init_params(cfg, torch.Generator(device=sm90).manual_seed(0),
                             sm90).requires_grad_(True)
@@ -947,7 +1007,7 @@ def _family_case(name):
     from repro_torch.models import recsys as R
     gen = torch.Generator().manual_seed(0)
     if name.startswith("gcn"):
-        cfg = configs.get("gcn-cora").REDUCED
+        cfg = configs.get("gcn-cora").make_reduced()
         kind = name.split("-")[1]
         if kind == "molecule":
             def batch(s):
@@ -970,7 +1030,7 @@ def _family_case(name):
                 fn = N.loss_fn
         return (N.init_params(cfg, gen, "cpu"),
                 lambda p, b: fn(cfg, p, b), [batch(0), batch(1)])
-    cfg = configs.get(name).REDUCED
+    cfg = configs.get(name).make_reduced()
     batches = [recsys_batch(s, 256, cfg.n_sparse, cfg.vocabs(), cfg.n_dense,
                             seed=2, kind=cfg.kind, seq_len=cfg.seq_len)
                for s in range(2)]

@@ -60,7 +60,7 @@ def _close(got, want, what=""):
 
 def _cfgs(norm):
     return (dataclasses.replace(r_gcn.REDUCED, norm=norm),
-            dataclasses.replace(configs.get("gcn-cora").REDUCED, norm=norm))
+            dataclasses.replace(configs.get("gcn-cora").make_reduced(), norm=norm))
 
 
 def _tree(rcfg, seed=0):
@@ -188,9 +188,9 @@ def test_configs_copy_the_reference():
                 assert getattr(t, f.name) == getattr(r, f.name), (shape, f)
         assert (r.aggregator, r.dropout) == ("mean", 0.0)
         assert t.param_count() == r.param_count()
-    assert configs.get("gcn-cora").CONFIG == configs.get(
+    assert configs.get("gcn-cora").make_config() == configs.get(
         "gcn-cora").make_config("full_graph_sm")
-    red = configs.get("gcn-cora").REDUCED
+    red = configs.get("gcn-cora").make_reduced()
     for f in dataclasses.fields(r_gcn.REDUCED):
         if f.name not in ("dtype",) + REF_ONLY:
             assert getattr(red, f.name) == getattr(r_gcn.REDUCED, f.name)

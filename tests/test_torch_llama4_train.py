@@ -51,7 +51,7 @@ STEPS_LR_BOUND = 0.05            # |dp| over the summed lr (test_torch_train)
 
 def _configs(arch, factor=None):
     rcfg = dataclasses.replace(ARCHS[arch].REDUCED, dtype=jnp.float32)
-    tcfg = dataclasses.replace(configs.get(arch).REDUCED,
+    tcfg = dataclasses.replace(configs.get(arch).make_reduced(),
                                dtype=torch.float32)
     if factor is not None:
         rcfg = dataclasses.replace(rcfg, capacity_factor=factor)
@@ -118,9 +118,9 @@ def grads(request):
     calls = []
     real_fa = ops.flash_attention
 
-    def spy(q, k, v, *, causal):
+    def spy(q, k, v, *, causal, **knobs):
         calls.append(tuple(q.shape))
-        return real_fa(q, k, v, causal=causal)
+        return real_fa(q, k, v, causal=causal, **knobs)
     try:
         routes = _Routes(mp)
         mp.setattr(ops, "flash_attention", spy)

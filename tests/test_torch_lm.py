@@ -58,7 +58,7 @@ def _close(got, want, dtype):
 
 def _configs(arch, dtype):
     rcfg = ARCHS[arch].REDUCED
-    tcfg = configs.get(arch).REDUCED
+    tcfg = configs.get(arch).make_reduced()
     if dtype == "float32":
         rcfg = dataclasses.replace(rcfg, dtype=jnp.float32)
         tcfg = dataclasses.replace(tcfg, dtype=torch.float32)
@@ -137,7 +137,7 @@ def test_decode_steps_match_reference(run):
 def test_serving_copy_computes_the_same_values():
     """cast_matrices stores the matrices in bf16; every use casts them to
     bf16 anyway, so prefill and decode give the same bits."""
-    cfg = configs.get("gemma-7b").REDUCED
+    cfg = configs.get("gemma-7b").make_reduced()
     g = torch.Generator().manual_seed(3)
     params = TT.init_params(cfg, g, device="cpu")
     toks = torch.from_numpy(np.random.default_rng(3).integers(
@@ -155,7 +155,7 @@ def test_serving_copy_computes_the_same_values():
 
 
 def test_init_params_follows_the_reference_scheme():
-    cfg = configs.get("qwen3-1.7b").REDUCED
+    cfg = configs.get("qwen3-1.7b").make_reduced()
     a = TT.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     b = TT.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     tree = RT.init_params(r_qwen.REDUCED, jax.random.PRNGKey(0))[0]
@@ -177,9 +177,11 @@ def test_init_params_follows_the_reference_scheme():
 
 def test_configs_copy_the_reference():
     for arch, rmod in ARCHS.items():
-        tmod = configs.get(arch)
+        spec = configs.get(arch)
         for which in ("CONFIG", "REDUCED"):
-            tcfg, rcfg = getattr(tmod, which), getattr(rmod, which)
+            tcfg = (spec.make_config() if which == "CONFIG"
+                    else spec.make_reduced())
+            rcfg = getattr(rmod, which)
             for f in dataclasses.fields(tcfg):
                 if f.name in ("dtype", "param_dtype"):
                     continue
@@ -187,7 +189,7 @@ def test_configs_copy_the_reference():
                     (arch, which, f.name)
             assert tcfg.param_count() == rcfg.param_count()
             assert tcfg.dtype == torch.bfloat16
-    with pytest.raises(KeyError, match="not ported"):
+    with pytest.raises(KeyError, match="unknown arch"):
         configs.get("jag-billion")
 
 
@@ -196,43 +198,35 @@ def test_configs_copy_the_reference():
                                     dict(attn_scores_bf16=True)])
 def test_configs_of_later_slices_raise(change):
     """MoE and chunked configs serve and train (the MoE's aux loss is
-    positive, a chunked config's 0); the bf16 score knobs raise
-    everywhere."""
-    cfg = dataclasses.replace(configs.get("qwen3-1.7b").REDUCED, **change)
+    positive, a chunked config's 0); the bf16 score knobs, which raised
+    until the kernel's bf16-score variant, now serve and train too
+    (``test_torch_attn_bf16.py`` holds their values)."""
+    cfg = dataclasses.replace(configs.get("qwen3-1.7b").make_reduced(),
+                              **change)
     toks = torch.zeros((1, 4), dtype=torch.long)
-    if "n_experts" in change or "attn_chunk" in change:
-        params = TT.init_params(cfg, torch.Generator(), device="cpu")
-        logits, aux = TT.forward(cfg, params, toks)
-        assert tuple(logits.shape) == (1, 4, cfg.padded_vocab)
-        assert (float(aux) > 0) == ("n_experts" in change)
-        total, m = TT.loss_fn(cfg, params, {"tokens": toks})
-        assert float(total) == pytest.approx(
-            float(m["ce"]) + cfg.router_aux_weight * float(m["router_aux"]))
-        logits, _ = TT.prefill(cfg, params, toks,
-                               TT.init_cache(cfg, 1, 4, "cpu"))
-        assert bool(torch.isfinite(logits).all())
-        return
-    with pytest.raises(NotImplementedError, match="slice"):
-        TT.init_params(cfg, torch.Generator(), device="cpu")
-    ok = configs.get("qwen3-1.7b").REDUCED
-    params = TT.init_params(ok, torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice"):
-        TT.forward(cfg, params, toks)
-    with pytest.raises(NotImplementedError, match="slice"):
-        TT.prefill(cfg, params, toks, TT.init_cache(ok, 1, 4, "cpu"))
+    params = TT.init_params(cfg, torch.Generator(), device="cpu")
+    logits, aux = TT.forward(cfg, params, toks)
+    assert tuple(logits.shape) == (1, 4, cfg.padded_vocab)
+    assert (float(aux) > 0) == ("n_experts" in change)
+    total, m = TT.loss_fn(cfg, params, {"tokens": toks})
+    assert float(total) == pytest.approx(
+        float(m["ce"]) + cfg.router_aux_weight * float(m["router_aux"]))
+    logits, _ = TT.prefill(cfg, params, toks,
+                           TT.init_cache(cfg, 1, 4, "cpu"))
+    assert bool(torch.isfinite(logits).all())
 
 
 def test_prefill_attention_goes_through_the_kernel_wrapper(monkeypatch):
     """Every layer's prefill attention is one ops.flash_attention call."""
-    cfg = configs.get("qwen3-1.7b").REDUCED
+    cfg = configs.get("qwen3-1.7b").make_reduced()
     params = TT.init_params(cfg, torch.Generator().manual_seed(0),
                             device="cpu")
     calls = []
     real = ops.flash_attention
 
-    def spy(q, k, v, *, causal):
+    def spy(q, k, v, *, causal, **knobs):
         calls.append((tuple(q.shape), tuple(k.shape), causal))
-        return real(q, k, v, causal=causal)
+        return real(q, k, v, causal=causal, **knobs)
 
     monkeypatch.setattr(ops, "flash_attention", spy)
     TT.prefill(cfg, params, torch.zeros((2, 7), dtype=torch.long),

@@ -49,7 +49,7 @@ ARCHS = {"fm": r_fm, "deepfm": r_deepfm, "wide-deep": r_wide_deep,
          "din": r_din}
 RTOL, ATOL = 1e-4, 1e-5          # atol of the largest magnitude
 # reference options that no config sets and the port leaves out
-REF_ONLY = ("field_vocabs", "table_dtype")
+REF_ONLY = ("field_vocabs",)
 B = 64
 OPT = dict(warmup_steps=2, total_steps=10)
 STEPS_LR_BOUND = 0.05
@@ -104,7 +104,7 @@ def _named(tree):
                 ids=lambda p: p[0] + ("-masked" if p[1] else ""))
 def grads(request):
     arch, masked = request.param
-    rcfg, tcfg = ARCHS[arch].REDUCED, configs.get(arch).REDUCED
+    rcfg, tcfg = ARCHS[arch].REDUCED, configs.get(arch).make_reduced()
     tree = _tree(rcfg)
     batch = _batch(rcfg, 0, masked)
     (rl, rm), rg = jax.jit(jax.value_and_grad(
@@ -156,7 +156,9 @@ def test_every_gradient_leaf_matches_reference(grads):
 def test_configs_and_param_count_copy_the_reference(arch):
     for which in ("CONFIG", "REDUCED"):
         rcfg = getattr(ARCHS[arch], which)
-        tcfg = getattr(configs.get(arch), which)
+        spec = configs.get(arch)
+        tcfg = (spec.make_config() if which == "CONFIG"
+                else spec.make_reduced())
         for f in dataclasses.fields(rcfg):
             if f.name not in ("dtype",) + REF_ONLY:
                 assert getattr(tcfg, f.name) == getattr(rcfg, f.name), f.name
@@ -164,7 +166,7 @@ def test_configs_and_param_count_copy_the_reference(arch):
         assert tcfg.dtype == torch.float32
         assert tcfg.vocabs() == rcfg.vocabs()
         assert tcfg.param_count() == rcfg.param_count()
-    tcfg = configs.get(arch).REDUCED
+    tcfg = configs.get(arch).make_reduced()
     params = TR.init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
     # the reference's count leaves out the scalar bias of fm, deepfm and
     # wide-deep; the port copies the count as it is
@@ -213,7 +215,7 @@ def test_embedding_bag_matches_reference(combine):
                            torch.from_numpy(seg), 9, combine)
     _close(got, want)
     assert not got[3].any() and not got[7].any()
-    offs = TR.field_offsets(configs.get("fm").REDUCED, "cpu")
+    offs = TR.field_offsets(configs.get("fm").make_reduced(), "cpu")
     np.testing.assert_array_equal(
         offs.numpy(), np.asarray(RR.field_offsets(r_fm.REDUCED)))
 
@@ -263,7 +265,7 @@ def test_retrieval_topk_matches_reference():
 
 @pytest.mark.parametrize("arch", list(ARCHS))
 def test_two_train_steps_match_reference(arch):
-    rcfg, tcfg = ARCHS[arch].REDUCED, configs.get(arch).REDUCED
+    rcfg, tcfg = ARCHS[arch].REDUCED, configs.get(arch).make_reduced()
     tree = _tree(rcfg, seed=1)
     batches = [_batch(rcfg, s) for s in (1, 2)]
     rstep = jax.jit(RSteps.make_train_step(
@@ -289,3 +291,38 @@ def test_two_train_steps_match_reference(arch):
     for n, w in _named(jax.tree.map(np.asarray, rp)).items():
         err = float(np.abs(_np(dict(params.named_parameters())[n]) - w).max())
         assert err <= STEPS_LR_BOUND * lr_sum, (n, err / lr_sum)
+
+
+@pytest.mark.parametrize("arch", ["deepfm", "din"])
+def test_bf16_table_matches_reference(arch):
+    """``table_dtype=bfloat16`` (the perf harness's din variant): the
+    table is stored in bf16, its rows promote to float32 where they meet
+    the float32 towers, as JAX promotes them; logits and loss within 2^-6
+    of the largest of the reference's on the same bf16 table (the bf16
+    tolerance of ``test_torch_lm.py``; deepfm's FM term sums bf16 rows in
+    bf16), the reference jitted with ``xla_allow_excess_precision`` off so
+    that it rounds every bf16 op as torch does."""
+    rcfg = dataclasses.replace(ARCHS[arch].REDUCED,
+                               table_dtype=jax.numpy.bfloat16)
+    tcfg = dataclasses.replace(configs.get(arch).make_reduced(),
+                               table_dtype=torch.bfloat16)
+    tree = _tree(rcfg)
+    batch = _batch(rcfg, 0)
+    opts = {"xla_allow_excess_precision": False}
+    want = jax.jit(lambda p, b: RR.forward(rcfg, p, b)).lower(
+        tree, batch).compile(compiler_options=opts)(tree, batch)
+    rl, _ = jax.jit(lambda p, b: RR.loss_fn(rcfg, p, b)).lower(
+        tree, batch).compile(compiler_options=opts)(tree, batch)
+    # torch takes no ml_dtypes bfloat16 array: widen (exactly) to carry it
+    wide = jax.tree.map(lambda a: a.astype(np.float32)
+                        if a.dtype.name == "bfloat16" else a, tree)
+    params = TR.params_from_jax(tcfg, wide, device="cpu")
+    assert params.table.dtype == torch.bfloat16
+    assert params.mlp[0].w.dtype == torch.float32
+    with torch.no_grad():
+        logits = TR.forward(tcfg, params, batch)
+        tl, _ = TR.loss_fn(tcfg, params, batch)
+    assert logits.dtype == torch.float32
+    for got, ref_ in ((logits, want), (tl, rl)):
+        ref_ = np.asarray(ref_, np.float32)
+        assert np.abs(_np(got) - ref_).max() <= 2.0 ** -6 * np.abs(ref_).max()

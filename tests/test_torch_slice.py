@@ -152,7 +152,7 @@ def test_port_imports_neither_jax_nor_repro():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 78, names\n"
+        "assert len(names) >= 84, names\n"
         "assert {'repro_torch.core.quantized', 'repro_torch.stream.delta',"
         " 'repro_torch.stream.index', 'repro_torch.train.optimizer',"
         " 'repro_torch.train.steps', 'repro_torch.kernels.autograd',"
@@ -163,7 +163,10 @@ def test_port_imports_neither_jax_nor_repro():
         " 'repro_torch.models.recsys', 'repro_torch.models.gnn',"
         " 'repro_torch.data.graph_sampler', 'repro_torch.configs.fm',"
         " 'repro_torch.configs.deepfm', 'repro_torch.configs.wide_deep',"
-        " 'repro_torch.configs.din', 'repro_torch.configs.gcn_cora'}"
+        " 'repro_torch.configs.din', 'repro_torch.configs.gcn_cora',"
+        " 'repro_torch.configs.registry', 'repro_torch.configs.jag_billion',"
+        " 'repro_torch.launch.mesh', 'repro_torch.launch.dryrun',"
+        " 'repro_torch.launch.perf', 'repro_torch.launch.train'}"
         " <= set(names),"
         " names\n"
         "print(len(names))\n")

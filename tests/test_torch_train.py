@@ -66,7 +66,7 @@ STEPS_LR_BOUND = 0.05           # |dp| over the summed lr, float32 steps
 
 def _configs(arch, dtype="float32"):
     rcfg = ARCHS[arch].REDUCED
-    tcfg = configs.get(arch).REDUCED
+    tcfg = configs.get(arch).make_reduced()
     if dtype == "float32":
         rcfg = dataclasses.replace(rcfg, dtype=jnp.float32)
         tcfg = dataclasses.replace(tcfg, dtype=torch.float32)
