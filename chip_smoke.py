@@ -155,7 +155,10 @@ result line:
    slice E's model routes at the per-shard n = 25,000 (route counts
    printed); ``make_serve_step`` in f32 and int8_reg at query_chunk 128
    and 64, the two chunkings equal bit for bit, the f32 recall equal to
-   the sharded graph route's.
+   the sharded graph route's; the same step on a [2][S] grid (the "pod"
+   query axis: each row serves half of the batch on its own S shards)
+   equal to the flat step bit for bit, its time printed beside the flat
+   step's.
 8. Slice B, the Boolean call site of the deficit kernel: msturing_bool
    (N = 100,000, 15 variables) through the prefilter scan on the card with
    the kernels, whose ids must equal the same scan's through the plain
@@ -1662,6 +1665,27 @@ def run_slice_f2(torch, np, c, model, K, LS, MI) -> dict:
         log(f"[slice F] make_serve_step {variant}: query_chunk 128 and 64 "
             f"equal bit for bit; recall@{K} {rec_v:.4f}; {t1:.2f} s and "
             f"{t2:.2f} s")
+        # the "pod" query axis: two rows of the S shards, each serving its
+        # half of the batch, against the flat step at the same chunking
+        grid = [list(c.mesh)] * 2
+        step = make_serve_step(grid, ShardedServeConfig(
+            k=K, ls=LS, max_iters=MI, query_chunk=128), "subset", "subset",
+            n_bits=filt.n_bits, variant=variant)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        i3, p3, s3 = step(*args)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter() - t0
+        same = (torch.equal(i1, i3) and torch.equal(p1, p3)
+                and torch.equal(s1, s3))
+        out["serve_step"][variant].update(pod_equal=same, s_pod=t3)
+        log(f"[slice F] make_serve_step {variant} on a [2][{S}] pod grid "
+            f"(query_chunk 128, {q.shape[0] // 2} queries a row): equal to "
+            f"the flat step bit for bit: {same}; {t3:.2f} s (flat "
+            f"{t1:.2f} s)")
+        if not same:
+            raise AssertionError(f"make_serve_step {variant}: the pod grid "
+                                 "differs from the flat step")
         if variant == "f32":
             agree = float((i1 == route_g.ids).all(dim=1).float().mean())
             log(f"[slice F] make_serve_step f32 against the sharded graph "

@@ -20,9 +20,10 @@ turns TF32 off for float32 products (see ``repro_torch.device``).
 from .core.beam_search import SearchResult
 from .core.filters import (And, AttrTable, Boolean, FilterBatch, FilterExpr,
                            Label, Not, Or, Range, Subset, as_filter,
-                           boolean_filters, boolean_table, joint_table,
-                           label_filters, label_table, matches,
-                           range_filters, range_table, subset_filters,
+                           boolean_filters, boolean_table, describe,
+                           filter_batch, joint_table, label_filters,
+                           label_table, matches, n_leaves, range_filters,
+                           range_table, selectivity, subset_filters,
                            subset_table)
 from .core.ground_truth import GroundTruth, exact_filtered_knn
 from .core.jag import JAGConfig, JAGIndex
@@ -30,6 +31,7 @@ from .core.jag import JAGConfig, JAGIndex
 __all__ = ["And", "AttrTable", "Boolean", "FilterBatch", "FilterExpr",
            "GroundTruth", "JAGConfig", "JAGIndex", "Label", "Not", "Or",
            "Range", "SearchResult", "Subset", "as_filter", "boolean_filters",
-           "boolean_table", "exact_filtered_knn", "joint_table",
-           "label_filters", "label_table", "matches", "range_filters",
-           "range_table", "subset_filters", "subset_table"]
+           "boolean_table", "describe", "exact_filtered_knn",
+           "filter_batch", "joint_table", "label_filters", "label_table",
+           "matches", "n_leaves", "range_filters", "range_table",
+           "selectivity", "subset_filters", "subset_table"]

@@ -405,18 +405,21 @@ BUILD_HOST_READ = (
 
 def _jag_cell(spec, shape_name, shp, mesh, rules, dev, inputs):
     from ..core.build import BuildConfig
-    from ..core.distributed import (ShardedServeConfig, make_build_step,
-                                    make_serve_step)
-    sx = tuple(a for a in ("data", "model") if a in mesh.axis_names)
-    S = 1
+    from ..core.distributed import (ShardedServeConfig, as_grid,
+                                    make_build_step, make_serve_step,
+                                    query_axes, shard_axes)
+    sx, qxs = shard_axes(mesh), query_axes(mesh)
+    S = P = 1
     for a in sx:
         S *= mesh.shape[a]
+    for a in qxs:
+        P *= mesh.shape[a]
     n_loc = shp["n_local"]
     d = shp["d"]
-    qx = _lead(tuple(a for a in ("pod",) if a in mesh.axis_names))
-    Bq = shp["batch"] * (mesh.shape["pod"] if "pod" in mesh.axis_names
-                         else 1)
-    devices = mesh.devices or (dev,) * S
+    qx = _lead(qxs)
+    Bq = shp["batch"] * P
+    # the [P][S] grid: each pod row serves its `batch` queries on S shards
+    grid = as_grid(mesh) if mesh.devices else [[dev] * S] * P
     shard = _lead(sx)
     f32, i32 = torch.float32, torch.int32
 
@@ -425,7 +428,7 @@ def _jag_cell(spec, shape_name, shp, mesh, rules, dev, inputs):
         cfgs = ShardedServeConfig(k=shp["k"], ls=shp["ls"],
                                   max_iters=shp["max_iters"],
                                   query_chunk=shp["query_chunk"])
-        fn = make_serve_step(devices, cfgs, "range", "range")
+        fn = make_serve_step(grid, cfgs, "range", "range")
         args = (inputs((S, n_loc, W), i32, high=n_loc),
                 inputs((S, n_loc, d), torch.bfloat16),
                 inputs((S, n_loc), f32),
@@ -453,7 +456,7 @@ def _jag_cell(spec, shape_name, shp, mesh, rules, dev, inputs):
                      thresholds=(float("inf"), 1000.0, 0.0),
                      cand_pool=shp["cand_pool"],
                      ex_slots=shp["ex_slots"], batch_size=shp["batch"])
-    fn = make_build_step(devices, bc, "range")
+    fn = make_build_step(grid, bc, "range")
     W = shp["degree"] + shp["ex_slots"]
     args = (inputs((S, n_loc, W), i32, high=n_loc),
             inputs((S, n_loc), i32, fill=0),

@@ -17,6 +17,7 @@ fills with the sign bit):
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -576,6 +577,21 @@ def n_leaves(filt) -> int:
     return len(filt.leaves()) if isinstance(filt, FilterExpr) else 1
 
 
+def filter_batch(kind: str, data, n_bits: int = 0) -> FilterBatch:
+    """Deprecated raw kind-enum constructor.
+
+    Build filters with the expression constructors (``Label``, ``Range``,
+    ``Subset``, ``Boolean``) or the per-kind ``*_filters`` helpers instead.
+    """
+    warnings.warn(
+        "filter_batch(kind, data) is deprecated; build filters with the "
+        "expression constructors Label/Range/Subset/Boolean (combine with "
+        "& | ~) or the *_filters helpers",
+        DeprecationWarning, stacklevel=2)
+    return FilterBatch(kind, {k: torch.as_tensor(v) for k, v in
+                              dict(data).items()}, n_bits=int(n_bits))
+
+
 def describe(filt) -> str:
     """Human-readable expression string."""
     if isinstance(filt, Leaf):
@@ -660,6 +676,11 @@ def matches(filt, attrs: Dict[str, torch.Tensor]) -> torch.Tensor:
     return _matches_atomic(filt, attrs)
 
 
+def matches_counted(filt, attrs: Dict[str, torch.Tensor]):
+    """(ok bool[B, C], short-circuit leaf evals int32[B, C])."""
+    return _eval_counted(filt, lambda f: _matches_atomic(f, attrs))
+
+
 def broadcast_rows(table: AttrTable, ids: torch.Tensor):
     """Sample-row attrs gathered once and broadcast [1, S, ...]."""
     attrs = table.gather(ids)
@@ -713,3 +734,22 @@ def matches_rows(filt, table: AttrTable, ids: torch.Tensor,
 
     return _eval_counted(filt, leaf_fn)
 
+
+def matches_all(filt, table: AttrTable) -> torch.Tensor:
+    """Full validity matrix bool[B, N] (pre-filter, ground truth)."""
+    return matches_sampled(filt, table, torch.arange(table.n,
+                                                     device=table.device))
+
+
+def match_rate(ok: torch.Tensor) -> torch.Tensor:
+    """Mean of a boolean tensor over its last axis, in float32, as XLA's
+    ``jnp.mean`` computes it: the count times the float32 reciprocal of the
+    length, so selectivities equal the reference's bit for bit."""
+    one = torch.ones((), device=ok.device)
+    n = torch.full((), float(ok.shape[-1]), device=ok.device)
+    return ok.to(torch.float32).sum(dim=-1) * (one / n)
+
+
+def selectivity(filt, table: AttrTable) -> torch.Tensor:
+    """The share of the table's rows that pass each query: float32[B]."""
+    return match_rate(matches_all(filt, table))

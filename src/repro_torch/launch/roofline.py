@@ -26,6 +26,7 @@ card's memory and the production meshes are in ``launch/mesh.py``.
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Optional, Tuple
 
 HW = dict(  # NVIDIA H100 SXM, data sheet, dense rates, at its 700 W limit
@@ -173,6 +174,30 @@ def format_row(r: Roofline) -> str:
     return (f"{r.name:40s} flops={r.flops:.4g} bytes={r.bytes:.4g} "
             f"comp={r.t_comp * 1e3:.3f}ms mem={r.t_mem * 1e3:.3f}ms "
             f"-> {r.bottleneck}{meas}")
+
+
+def save_all(rows, path: str):
+    """Write rows as the reference's file: a JSON list of ``to_dict()``s,
+    indent 1."""
+    with open(path, "w") as f:
+        json.dump([r.to_dict() for r in rows], f, indent=1)
+
+
+def _from_dict(d: dict) -> Roofline:
+    if "arch" in d:     # the reference's row: one card's HLO terms
+        return Roofline(f"{d['arch']} x {d['shape']} x {d['mesh']}",
+                        d["flops_per_chip"], d["bytes_per_chip"],
+                        d["t_comp"], d["t_mem"], d["bottleneck"])
+    return Roofline(**{f.name: d[f.name]
+                       for f in dataclasses.fields(Roofline) if f.name in d})
+
+
+def load_all(path: str):
+    """Rows from a file of ``save_all``'s, or of the reference's
+    ``save_all`` (its per-card flops, bytes, the two terms and the
+    bottleneck; the collective term has no counterpart on one card)."""
+    with open(path) as f:
+        return [_from_dict(d) for d in json.load(f)]
 
 
 def analyze(name: str, *, n_bytes: float, n_ops: float, rate: float,

@@ -1,6 +1,6 @@
 """Shared layers (counterpart of ``repro.models.layers``): the LM's norms,
-rope, activations and loss, and the recsys models' MLP towers
-(``Dense``, ``mlp_stack``, ``mlp_apply``).
+rope, activations, gated MLP (``swiglu``) and loss, and the recsys
+models' MLP towers (``Dense``, ``mlp_stack``, ``mlp_apply``).
 
 The reference runs under XLA, which rounds every op of a bf16 expression
 to bf16 and rounds a Python scalar to the array's dtype before using it.
@@ -33,6 +33,21 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     inner = x + scalar(0.044715, x.dtype) * (x * x * x)
     t = torch.tanh(scalar(math.sqrt(2.0 / math.pi), x.dtype) * inner)
     return x * (scalar(0.5, x.dtype) * (1.0 + t))
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """Gated MLP. x [..., d]; w_gate/w_up [d, f]; w_down [f, d]; ``act``
+    "silu" or "gelu" (GeGLU, tanh form)."""
+    g = x @ w_gate
+    u = x @ w_up
+    if act == "silu":
+        g = silu(g)
+    elif act == "gelu":
+        g = gelu(g)
+    else:
+        raise ValueError(act)
+    return (g * u) @ w_down
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,

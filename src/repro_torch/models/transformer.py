@@ -95,7 +95,8 @@ from torch.utils.checkpoint import (checkpoint,
 
 from ..device import resolve_device
 from ..kernels import autograd, ops
-from .layers import gelu, rms_norm, rope, scalar, silu, softmax_cross_entropy
+from .layers import (gelu, rms_norm, rope, scalar, silu,
+                     softmax_cross_entropy, swiglu)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -350,10 +351,8 @@ def cast_matrices(params: LM, dtype: torch.dtype) -> LM:
 # ---------------------------------------------------------------------------
 
 def _dense_ffn(cfg: LMConfig, lw: Block, x: torch.Tensor) -> torch.Tensor:
-    g = x @ lw.gate.to(x.dtype)
-    u = x @ lw.up.to(x.dtype)
-    g = silu(g) if cfg.act == "silu" else gelu(g)
-    return (g * u) @ lw.down.to(x.dtype)
+    return swiglu(x, lw.gate.to(x.dtype), lw.up.to(x.dtype),
+                  lw.down.to(x.dtype), cfg.act)
 
 
 class Routing(NamedTuple):

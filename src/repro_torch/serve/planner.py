@@ -31,8 +31,8 @@ import numpy as np
 import torch
 
 from ..core.filters import (And, AttrTable, FilterBatch, FilterExpr, Leaf,
-                            Not, Or, broadcast_rows, describe, matches,
-                            matches_sampled)
+                            Not, Or, broadcast_rows, describe, match_rate,
+                            matches, matches_sampled)
 
 ROUTES = ("prefilter", "graph", "postfilter")
 
@@ -112,15 +112,6 @@ def sample_ids(n: int, n_samples: int, seed: int = 0,
         rng = np.random.default_rng(seed)
         ids = rng.choice(n, n_samples, replace=False).astype(np.int32)
     return torch.as_tensor(ids, device=device)
-
-
-def match_rate(ok: torch.Tensor) -> torch.Tensor:
-    """Mean of a boolean tensor over its last axis, in float32, as XLA's
-    ``jnp.mean`` computes it: the count times the float32 reciprocal of the
-    length, so selectivities equal the reference's bit for bit."""
-    one = torch.ones((), device=ok.device)
-    n = torch.full((), float(ok.shape[-1]), device=ok.device)
-    return ok.to(torch.float32).sum(dim=-1) * (one / n)
 
 
 def estimate_selectivity(filt, table: AttrTable,

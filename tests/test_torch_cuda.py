@@ -26,7 +26,9 @@ within 1e-4 (float32) and 2^-6 (bf16) of its largest logit, as
 ``test_torch_lm.py`` states; its training loss and gradients with the
 kernel forward agree with the plain attention's within
 ``test_torch_train.py``'s tolerances (2e-5 float32, 2^-6 bf16). On two or
-more cards, a launch on ``cuda:1`` must leave card 0 current (F10).
+more cards, a launch on ``cuda:1`` must leave card 0 current (F10); on
+four, the sharded serve step on a [2][2] pod grid equals the flat step
+over two cards bit for bit.
 Reduced llama4 scout trains on the card (kernel forward, the chunk split
 of T = 20 into two launches a chunked layer) within
 ``test_torch_llama4_train.py``'s tolerances (rtol 1e-4, atol 1e-5 of the
@@ -722,6 +724,53 @@ def test_cuda_sharded_transfers_on_distinct_cards(sm90):
     got = ex.prefilter(q, filt, k=k)
     assert torch.equal(got.ids, want.ids)
     assert int((want.ids >= 0).sum()) > 0
+
+
+@pytest.mark.gpu
+def test_cuda_pod_grid_on_four_cards_equals_the_flat_step(sm90):
+    """The "pod" query axis on four distinct cards: a [2][2] grid (row p on
+    cuda:2p and cuda:2p+1) serves each half of the batch on its own two
+    shards, and equals the flat step over cuda:0 and cuda:1 bit for bit,
+    f32 and int8_reg; the output lands on cuda:0, which stays current."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four or more cards")
+    from repro_torch.core.distributed import (ShardedServeConfig,
+                                              make_serve_step)
+    from repro_torch.core.jag import JAGConfig, JAGIndex
+    from repro_torch.core.quantized import quantize_int8
+    torch.cuda.set_device(0)
+    rng = np.random.default_rng(12)
+    S, n_loc, d, B = 2, 1000, 24, 64
+    x = rng.normal(size=(S, n_loc, d)).astype(np.float32)
+    vals = rng.uniform(0, 100, (S, n_loc)).astype(np.float32)
+    cfg = JAGConfig(degree=16, ls_build=32, batch_size=128, cand_pool=64)
+    shards = [JAGIndex.build(x[s], range_table(vals[s], device=sm90), cfg,
+                             device=sm90) for s in range(S)]
+    codes, scale = quantize_int8(_t(x.reshape(-1, d)).to(sm90))
+    lo = rng.uniform(0, 80, B).astype(np.float32)
+    q = _t(rng.normal(size=(B, d)).astype(np.float32)).to(sm90)
+    filt = {"lo": _t(lo).to(sm90), "hi": _t(lo + 20).to(sm90)}
+    cards = [torch.device("cuda", i) for i in range(4)]
+    for variant in ("f32", "int8_reg"):
+        xb = ([s.xb for s in shards] if variant == "f32"
+              else list(codes.reshape(S, n_loc, d)))
+        args = ([s.graph for s in shards], xb, [s.xb_norm for s in shards],
+                {"value": [s.attr.data["value"] for s in shards]},
+                [s.entry for s in shards], q, filt)
+        args += () if variant == "f32" else (scale,)
+        out = {}
+        for name, mesh in (("flat", cards[:2]),
+                           ("grid", [cards[:2], cards[2:]])):
+            step = make_serve_step(mesh, ShardedServeConfig(
+                k=10, ls=32, max_iters=64, query_chunk=16), "range",
+                "range", variant=variant)
+            out[name] = step(*args)
+            torch.cuda.synchronize()
+            assert torch.cuda.current_device() == 0
+        for g, w in zip(out["grid"], out["flat"]):
+            assert g.device == cards[0]
+            assert torch.equal(g, w), variant
+        assert float((out["grid"][1] == 0).float().mean()) > 0.9, variant
 
 
 def _seven_launches(dev, gen):

@@ -415,6 +415,36 @@ def test_accumulation_matches_one_batch(steps3):
         TSteps.accumulate_grads(loss_fn, params, batch, 3)
 
 
+def test_slice_h_schedule_losses_match_reference():
+    """ROADMAP F13: slice H's schedule (``warmup_steps=1``, so the first
+    update takes the full lr) for 5 float32 steps of reduced qwen3 at accum
+    2, in both packages on the same weights and batches. Loss and grad
+    norm agree per step within the float32 tolerance, so a rise of the loss
+    after step 1 is the schedule's, not the port's."""
+    rcfg, tcfg = _configs("qwen3-1.7b")
+    tree = _tree(rcfg)
+    ocfg = dict(warmup_steps=1, total_steps=10)
+    batches = [RP.lm_batch(s, 4, T, rcfg.vocab, seed=3) for s in range(5)]
+    rstep = jax.jit(RSteps.make_train_step(
+        lambda p, b: RT.loss_fn(rcfg, p, b), ROpt.OptConfig(**ocfg), 2))
+    params = TT.params_from_jax(tcfg, tree, device="cpu")
+    params.requires_grad_(True)
+    tstep = TSteps.make_train_step(lambda p, b: TT.loss_fn(tcfg, p, b),
+                                   TOpt.OptConfig(**ocfg), 2)
+    rp, rs, state = tree, ROpt.init_state(tree), TOpt.init_state(params)
+    for i, b in enumerate(batches):
+        rp, rs, want = rstep(rp, rs, b)
+        params, state, got = tstep(params, state, b)
+        assert float(got["lr"]) == pytest.approx(float(want["lr"]),
+                                                 rel=1e-6), i
+        for k in ("loss", "grad_norm"):
+            assert float(got[k]) == pytest.approx(
+                float(want[k]), rel=TOL["float32"]), (i, k)
+        print(f"step {i + 1}: loss {float(got['loss'])!r} (reference "
+              f"{float(want['loss'])!r}), grad norm "
+              f"{float(got['grad_norm'])!r} ({float(want['grad_norm'])!r})")
+
+
 def test_training_needs_gradients_turned_on():
     """The serving weights are frozen; a step on them raises instead of
     updating nothing."""
