@@ -2995,7 +2995,7 @@ def run_slice_m(torch, np, dev, seed: int, kernels: dict, dry) -> dict:
     M_CRASH_AT, resumed, and a control run; (f) the variant against its
     plain version and SDPA at slice C's prefill shape. Every gate raises;
     returns the phase's report."""
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import _build, ops, ref
     from repro_torch.launch import perf
     from repro_torch.launch import roofline as RL
     from repro_torch import configs
@@ -3213,19 +3213,31 @@ def run_slice_m(torch, np, dev, seed: int, kernels: dict, dry) -> dict:
     split_ms = cuda_ms(torch, lambda: ops.flash_attention(fq, fk, fv), 5)
     lib = cuda_ms(torch, lambda: sdpa(fq, fk, fv, is_causal=True,
                                       enable_gqa=True), 10)
+    # ptxas's registers and spill stores of each variant instance (kMode
+    # 1 = p_bf16, 2 = scores_bf16), from this run's build
+    insts = [dict(kernel=fn, registers=regs, spill_bytes=spill)
+             for fn, regs, spill in ptxas_report(
+                 _build.PTXAS_LOG.get("flash_attention", ""))
+             if "flash_attention_bf16_wgmma" in fn]
     for knob, m in modes.items():
+        mode = "2>" if knob == "scores_bf16" else "1>"
+        m["ptxas"] = [i for i in insts if i["kernel"].endswith(mode)]
+        regs = "; ".join(f"{i['kernel']}: {i['registers']} registers, "
+                         f"{i['spill_bytes']} bytes of spill stores"
+                         for i in m["ptxas"]) or "ptxas: not in this build"
         log(f"[slice M] flash_attention_bf16 ({knob}) "
             f"q[{','.join(map(str, fshape))}]: max_abs_err "
             f"{m['max_abs_err']:.3g} of the largest output "
             f"{m['largest']:.4g}, {m['ms']:.4f} ms (plain "
             f"{m['plain_ms']:.4f} ms, bound {b:.4f} ms by {o}, SDPA "
-            f"{lib:.4f} ms, the split-p kernel {split_ms:.4f} ms)")
+            f"{lib:.4f} ms, the split-p kernel {split_ms:.4f} ms); {regs}")
     sm = modes["scores_bf16"]
     kernels["flash_attention_bf16"].update(
         shape=f"q[{','.join(map(str, fshape))}] "
               f"kv[{','.join(map(str, kshape))}] bf16 causal scores_bf16",
         max_abs_err=sm["max_abs_err"], ms=sm["ms"], plain_ms=sm["plain_ms"],
-        bound_ms=b, bound_by=o, library_ms=lib, p_bf16=modes["p_bf16"],
+        bound_ms=b, bound_by=o, library_ms=lib, ptxas=sm["ptxas"],
+        p_bf16=modes["p_bf16"],
         split_kernel_ms=split_ms)
     del fq, fk, fv
     torch.cuda.empty_cache()

@@ -1,7 +1,7 @@
 // hopper.cuh: the inline-PTX wrappers that the sm_90a kernels share:
 // shared-memory addresses, wgmma's fence, commit and wait, the fence
 // between the threads' shared-memory writes and the async proxy, cp.async,
-// and the SFU's 2^x.
+// the SFU's 2^x, and arithmetic on bf16 pairs packed in one register.
 //
 // Included by flash_attention.cu, and through tf32x3.cuh by l2dist.cu and
 // flash_attention_f32.cu; each still builds alone into its own library.
@@ -67,6 +67,32 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// Two bf16 values in one 32-bit register, the lower column in the low
+// half (wgmma's register-A layout; __floats2bfloat162_rn's order).
+// cvt puts its first source in the upper half.
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  uint32_t d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
+}
+__device__ __forceinline__ float bf16_lo(uint32_t x) {
+  return __uint_as_float(x << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t x) {
+  return __uint_as_float(x & 0xFFFF0000u);
+}
+// Lane-wise max (exact) and a - b rounded once to nearest even.
+__device__ __forceinline__ uint32_t max_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("max.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t sub_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
 }
 
 }  // namespace hopper

@@ -20,7 +20,12 @@ Held here:
   rounding points (at its own 16, ``wk``'s gradient differs by 0.018 of
   the largest);
 - ``logits_bf16``: bf16 logits of a float32 model, the loss's logsumexp in
-  float32.
+  float32;
+- the arithmetic that the kernel (``csrc/flash_attention.cu``) puts in
+  place of two of the plain version's bf16 operations, bit for bit over
+  every finite bf16 value: Q times the float32 reciprocal of bf16(sqrt D)
+  for Q / bf16(sqrt D), and one correctly rounded bf16 subtraction
+  (``sub.rn.bf16x2``) for s - bf16(m_safe).
 
 Tolerance: ``TOL`` = 2^-6 of the largest magnitude of the reference's
 value (``test_torch_lm.py``'s bf16 tolerance). Measured on the CPU: the
@@ -189,3 +194,70 @@ def test_logits_bf16_rounds_the_logits_only():
     tl, m = TT.loss_fn(tcfg, params, {"tokens": toks})
     assert tl.dtype == torch.float32
     assert abs(float(tl) - float(rl)) <= TOL * abs(float(rl))
+
+
+def _finite_bf16():
+    """Every finite bf16 value, from its bits."""
+    bits = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16)
+    x = bits.view(torch.bfloat16)
+    return x[torch.isfinite(x)]
+
+
+def _host_bf16(x: np.float32) -> np.float32:
+    """bf16(x) as ``launch_width`` in ``csrc/flash_attention.cu`` rounds
+    it: to nearest even on the float32 bits."""
+    u = int(np.array(x, np.float32).view(np.uint32))
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return np.array(u, np.uint32).view(np.float32)[()]
+
+
+def _round_bf16(x: np.ndarray) -> np.ndarray:
+    """float64 values rounded once to bf16 (to nearest, ties to even) at
+    bf16's quantum: 2^(e - 8) for a value in [2^(e-1), 2^e), 2^-133 below
+    2^-126 (subnormals); at 2^128 and beyond, infinity."""
+    _, e = np.frexp(x)
+    q = np.maximum(e, -125) - 8
+    r = np.ldexp(np.rint(np.ldexp(x, -q)), q)
+    return np.where(np.abs(r) >= 2.0 ** 128, np.copysign(np.inf, x), r)
+
+
+def test_q_pass_reciprocal_multiply_equals_the_division():
+    """The score mode's Q pass: bf16(q * float32(1 / c)), c = bf16(sqrt
+    D) as the host rounds it, equals the plain version's bf16 ``q / c``
+    for every finite bf16 q and every D in 8, 16, ..., 256."""
+    q = _finite_bf16()
+    for D in range(8, 257, 8):
+        c = _host_bf16(np.sqrt(np.float32(D)))
+        plain_c = torch.tensor(math.sqrt(D), dtype=torch.bfloat16)
+        assert float(plain_c) == float(c), D
+        rcp = torch.tensor(np.float32(1.0) / c, dtype=torch.float32)
+        got = (q.float() * rcp).to(torch.bfloat16)
+        want = q / plain_c
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16)), D
+
+
+def test_bf16_subtraction_is_rounded_once():
+    """The score mode's s - bf16(m_safe): torch's bf16 subtraction (the
+    plain version's: the float32 difference, rounded to bf16) equals the
+    exact difference rounded once, the result of ``sub.rn.bf16x2``, for
+    every finite bf16 s and a seeded set of m with 0, +-1, powers of two
+    and the largest values. The float64 difference is exact while the
+    exponents lie within 45 of each other; beyond, it lies within 2^-52
+    of the larger value, a bf16 value with 8 significant bits, and rounds
+    to it, as the exact difference does."""
+    s = _finite_bf16()
+    rng = np.random.default_rng(27)
+    bits = [0x0000, 0x8000, 0x3F80, 0xBF80, 0x7F7F, 0xFF7F, 0x7F7E, 0xFF7E,
+            0x7F00, 0x0001, 0x8001, 0x0080, 0x8080]
+    bits += [(127 + k) << 7 for k in (-126, -100, -24, -8, -1, 1, 8, 16, 24,
+                                      64, 100, 127)]
+    bits += [0x8000 | ((127 + k) << 7) for k in (-60, -2, 3, 30, 127)]
+    bits += [int(b) for b in rng.integers(0, 65536, 64)
+             if (int(b) >> 7) & 0xFF != 0xFF]
+    m = (torch.tensor(bits, dtype=torch.int32).to(torch.int16)
+         .view(torch.bfloat16))
+    assert bool(torch.isfinite(m).all())
+    got = s[:, None] - m[None, :]
+    exact = s.double().numpy()[:, None] - m.double().numpy()[None, :]
+    want = torch.from_numpy(_round_bf16(exact)).to(torch.bfloat16)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))

@@ -503,21 +503,25 @@ def _bf16_variant_ok(got, want) -> bool:
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("knob", ["p_bf16", "scores_bf16"])
-@pytest.mark.parametrize("D,B,H,Hkv,Tq,Tk,causal", [
-    (64, 1, 2, 1, 40, 40, True), (128, 2, 4, 2, 300, 300, True),
-    (256, 1, 2, 2, 200, 200, True), (32, 1, 3, 1, 129, 129, True),
-    (128, 1, 2, 1, 70, 200, False), (128, 2, 16, 8, 1024, 1024, True)])
+@pytest.mark.parametrize("D,B,H,Hkv,Tq,Tk,causal,q_scale", [
+    (64, 1, 2, 1, 40, 40, True, 1), (128, 2, 4, 2, 300, 300, True, 1),
+    (256, 1, 2, 2, 200, 200, True, 1), (32, 1, 3, 1, 129, 129, True, 1),
+    (128, 1, 2, 1, 70, 200, False, 1), (128, 2, 16, 8, 1024, 1024, True, 1),
+    (128, 2, 4, 2, 300, 300, True, 30), (128, 1, 2, 1, 200, 70, False, 1)])
 def test_cuda_flash_attention_bf16_variant_matches_plain(
-        sm90, knob, D, B, H, Hkv, Tq, Tk, causal):
+        sm90, knob, D, B, H, Hkv, Tq, Tk, causal, q_scale):
     """The bf16-score variant (``flash_attention_bf16``, the LM's
     attn_p_bf16 / attn_scores_bf16) against its plain version with the
     same rounding points: one launch of the variant and nothing else,
     within ``_bf16_variant_ok``, which the split kernel (knobs ignored,
     p kept to 2^-17) fails on the same inputs; float32 inputs are cast to
-    bf16 first, so they give the same values."""
+    bf16 first, so they give the same values. q times 30 spreads s - m
+    over many binades and sends most p to 0; Tq > Tk without the causal
+    mask leaves the ragged last kv tile to every q tile."""
     g = torch.Generator(device=sm90)
     g.manual_seed(D + Tq)
-    q = torch.randn((B, H, Tq, D), generator=g, device=sm90).bfloat16()
+    q = (torch.randn((B, H, Tq, D), generator=g, device=sm90)
+         * q_scale).bfloat16()
     k = torch.randn((B, Hkv, Tk, D), generator=g, device=sm90).bfloat16()
     v = torch.randn((B, Hkv, Tk, D), generator=g, device=sm90).bfloat16()
     flags = {knob: True}
