@@ -1,0 +1,8 @@
+"""bitset_dist_roofline: the bound of the scan work of the profiled batches'
+scanned queries (frozen ``kernel_work``, published peaks) over the device
+time of ``bitset_dist`` in their trace, in percent."""
+from jagbench.readers import kernel_roofline
+
+
+def read(run):
+    return kernel_roofline(run, "bitset_dist")
